@@ -1,0 +1,54 @@
+"""The port stands alone: no file of paxi_tpu_torch/, nor chip_smoke.py,
+imports jax, jaxlib or the JAX package paxi_tpu (the machine with the
+card has no JAX)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted(str(p.relative_to(ROOT))
+               for p in (ROOT / "paxi_tpu_torch").rglob("*.py")) \
+    + ["chip_smoke.py", "scripts/torch_step_profile.py"]
+BANNED = ("jax", "jaxlib", "paxi_tpu")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_files_found():
+    assert "paxi_tpu_torch/sim/runner.py" in FILES
+    assert len(FILES) > 15
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_no_jax_import(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = [m for m in _imported(tree)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_no_jax_platform_setting(path):
+    """Port processes never steer a JAX install: there is none to steer."""
+    assert "JAX_PLATFORMS" not in (ROOT / path).read_text(), path
+
+
+def test_registry_modules_are_in_the_port():
+    from paxi_tpu_torch.protocols import _SIM_MODULES
+    assert all(m.startswith("paxi_tpu_torch.")
+               for m in _SIM_MODULES.values())
