@@ -7,19 +7,23 @@ Phases, each printing its own line(s); any failure ends the run with a
 non-zero exit code and no result line:
 
 1. device: the card's name and power limit, torch and CUDA versions, and
-   the time to build the CUDA kernels from ``paxi_tpu_torch/ops/csrc``;
-2. kernels against their plain versions at the main path's shape (paxos
-   mailbox, 5 replicas, 100,000 groups, wheel depth 1 and 3): exact
-   equality, CUDA-event times (median), bytes moved and the bandwidth
-   bound;
+   the time to build the CUDA kernels from ``paxi_tpu_torch/ops/csrc``
+   (one ``nvcc`` a source, started together);
+2. kernels against their plain versions at the main paths' shapes, exact:
+   the two exchange kernels at 100,000 groups x 5 replicas for the paxos
+   and the epaxos mailbox (wheel depth 1 and 3), and the closure kernel
+   at the EPaxos execution step's shape (500,000 graphs of 80 nodes, two
+   densities) and at 130 and 256 nodes; CUDA-event times (median), bytes
+   moved and the bound;
 3. card against CPU: the same seed and a small shape run on both devices
    under a fault-free and a fuzzed schedule must give identical final
-   state, metrics and violations;
-4. the main path: 100,000 groups x 5 replicas x 64-slot ring for 104
-   steps through ``simulate``, fault-free (warm-up run, then a timed run)
-   and under ``FuzzConfig(p_drop=0.1, max_delay=3)``, with the launch
-   counts of both kernels read around each run, then a per-stage split
-   of one step's device time;
+   state, metrics and violations, for paxos and for epaxos;
+4. the main paths, each read with the launch counts set to 0 just before
+   it: paxos at 100,000 groups x 5 replicas x 64-slot ring for 104 steps
+   and epaxos at 100,000 groups x 5 replicas x 16-instance window x 4
+   keys for 60 steps, both through ``simulate``, fault-free (warm-up run,
+   then a timed run) and under ``FuzzConfig(p_drop=0.1, max_delay=3)``,
+   then a per-stage split of one step's device time for each;
 5. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -29,6 +33,7 @@ is not available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -38,11 +43,34 @@ import time
 import torch
 
 SEED = 0
-GROUPS, REPLICAS, RING, STEPS = 100_000, 5, 64, 104
+GROUPS, REPLICAS = 100_000, 5
 SMALL_GROUPS, SMALL_STEPS = 256, 60
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
+CUDA_CORE_OPS_PER_S = 67e12          # H100 SXM float32 outside tensor cores
 TIMED_REPS = 20
 FUZZ_ARGS = dict(p_drop=0.1, max_delay=3)
+# the two main paths: configuration, depth, and what a fault-free run
+# must commit
+PATHS = {
+    "paxos": dict(cfg=dict(n_replicas=REPLICAS, n_slots=64), steps=104,
+                  line="main_path",
+                  metric="committed_paxos_slots_per_sec",
+                  count="committed_slots",
+                  expect=lambda steps: (steps - 4) * GROUPS),
+    # fault-free EPaxos draws nothing random: 74 instances a group
+    # commit and execute in 60 steps (the same count as the JAX package)
+    "epaxos": dict(cfg=dict(n_replicas=REPLICAS, n_slots=16, n_keys=4),
+                   steps=60, line="epaxos_path",
+                   metric="epaxos_conflict_executed_per_sec",
+                   count="executed", expect=lambda steps: 74 * GROUPS),
+}
+# closure shapes: (label, graphs, nodes, edge density); the first two are
+# the EPaxos execution step's (replicas x groups graphs of R x 16 nodes)
+CLOSURE_SHAPES = (("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.02),
+                  ("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.1),
+                  ("n130", 50_000, 130, 0.02),
+                  ("n256", 20_000, 256, 0.02))
+CLOSURE_CHUNK_BYTES = 1_300_000_000  # float32 operand of the plain check
 
 
 def log(msg: str) -> None:
@@ -78,6 +106,19 @@ def median_ms(fn, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
+def launch_counts():
+    from paxi_tpu_torch.ops import closure, exchange
+    return {"wheel_deliver": exchange.wheel_deliver.launches,
+            "wheel_insert": exchange.wheel_insert.launches,
+            "transitive_closure": closure.transitive_closure.launches}
+
+
+def reset_launch_counts() -> None:
+    from paxi_tpu_torch.ops import closure, exchange
+    exchange.reset_launches()
+    closure.reset_launches()
+
+
 # ---- phase 2: kernels against their plain versions ----------------------
 
 def random_blocks(spec, d: int, gen: torch.Generator):
@@ -104,7 +145,9 @@ def random_blocks(spec, d: int, gen: torch.Generator):
     return blocks
 
 
-def kernel_phase(spec):
+def exchange_phase(path: str, spec):
+    """Both exchange kernels on one mailbox's blocks, one step's worth
+    (every message type), at wheel depth 1 and 3."""
     from paxi_tpu_torch.ops import exchange as ops
     from paxi_tpu_torch.sim import mailbox as mb
 
@@ -126,8 +169,8 @@ def kernel_phase(spec):
                                       int((got.long() - want.long())
                                           .abs().max()))
         torch.cuda.synchronize()
-        # bytes one step moves over all five message types: each input
-        # read once, each output written once
+        # bytes one step moves over all message types: each input read
+        # once, each output written once
         deliver_bytes = sum(w.numel() * 4 + w[0].numel() * 4 + w.numel() * 4
                             for w, *_ in blocks.values())
         insert_bytes = sum(w.numel() * 4 * 2 + ob.numel() * 4
@@ -146,15 +189,89 @@ def kernel_phase(spec):
         }
         for name, (ms, plain_ms, nbytes) in timings.items():
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            row = {"kernel": name, "wheel_depth": d, "groups": GROUPS,
-                   "replicas": REPLICAS, "message_types": len(vals),
+            row = {"kernel": name, "mailbox": path, "wheel_depth": d,
+                   "groups": GROUPS, "replicas": REPLICAS,
+                   "message_types": len(vals),
                    "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                    "bytes": nbytes, "bound_ms": bound_ms,
                    "share_of_bound": bound_ms / ms}
             log("kernel " + json.dumps(row))
             if err[name] != 0:
-                fail(f"{name} differs from its plain version at d={d}")
+                fail(f"{name} differs from its plain version at d={d} "
+                     f"({path} mailbox)")
             rows[(name, d)] = row
+        del blocks, vals
+    return rows
+
+
+def closure_word_ors(a: torch.Tensor) -> int:
+    """The 32-bit word ORs a bit-packed row squaring needs on these graphs:
+    each squaring ORs one row of W = ceil(N/32) words per set bit, and a
+    graph stops once a squaring changes nothing."""
+    from paxi_tpu_torch.ops.closure import _n_iter
+    n = a.shape[-1]
+    words = (n + 31) // 32
+    reach = a
+    live = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+    total = 0
+    for _ in range(_n_iter(n)):
+        bits = reach.sum(dim=(1, 2), dtype=torch.int64)
+        total += int(bits[live].sum()) * words
+        r = reach.to(torch.float32)
+        nxt = reach | (torch.matmul(r, r) > 0)
+        live = live & torch.any(nxt != reach, dim=(1, 2))
+        reach = nxt
+        if not bool(live.any()):
+            break
+    return total
+
+
+def closure_phase():
+    """The closure kernel against its plain version, exact, compared in
+    chunks that keep the plain version's float32 operands small."""
+    from paxi_tpu_torch.ops import closure as C
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    rows = []
+    for label, b, n, p in CLOSURE_SHAPES:
+        a = torch.rand((b, n, n), generator=gen, device="cuda") < p
+        got = C.closure_launch(a)
+        chunk = max(1, CLOSURE_CHUNK_BYTES // (4 * n * n))
+        err, ors = 0, 0
+        for s in range(0, b, chunk):
+            want = C.closure_plain(a[s:s + chunk])
+            err = max(err, int((got[s:s + chunk].to(torch.int32)
+                                - want.to(torch.int32)).abs().max()))
+            ors += closure_word_ors(a[s:s + chunk])
+        del got, want
+        ms = median_ms(lambda: C.closure_launch(a))
+
+        def plain_all():
+            for s in range(0, b, chunk):
+                C.closure_plain(a[s:s + chunk])
+
+        plain_ms = median_ms(plain_all, reps=5)
+        nbytes = 2 * a.numel()              # read adj once, write reach once
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ors / CUDA_CORE_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        # the TPU kernel's formulation: n_iter float squarings of N x N
+        tpu_flop = C._n_iter(n) * 2 * n ** 3 * b
+        row = {"kernel": "transitive_closure", "shape": label, "graphs": b,
+               "nodes": n, "density": p, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bytes": nbytes, "word_ors": ors,
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "share_of_bound": bound_ms / ms,
+               "squaring_flop_of_tpu_form": tpu_flop}
+        log("kernel " + json.dumps(row))
+        if err != 0:
+            fail(f"transitive_closure differs from its plain version at "
+                 f"{label} (N={n}, p={p})")
+        rows.append(row)
+        del a
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -174,8 +291,9 @@ def compare_runs(a, b, label: str) -> None:
         fail(f"{label}: violations differ")
 
 
-def card_vs_cpu_phase(proto, cfg):
+def card_vs_cpu_phase(path: str, proto, cfg):
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, simulate
+    count = PATHS[path]["count"]
     for label, fuzz in (("fault_free", FAULT_FREE),
                         ("fuzz", FuzzConfig(**FUZZ_ARGS))):
         t0 = time.perf_counter()
@@ -183,69 +301,106 @@ def card_vs_cpu_phase(proto, cfg):
                           seed=SEED, device="cpu")
         on_card = simulate(proto, cfg, SMALL_GROUPS, SMALL_STEPS, fuzz,
                            seed=SEED, device="cuda")
-        compare_runs(on_cpu, on_card, label)
+        compare_runs(on_cpu, on_card, f"{path} {label}")
         log("card_vs_cpu " + json.dumps({
-            "schedule": label, "groups": SMALL_GROUPS,
+            "protocol": path, "schedule": label, "groups": SMALL_GROUPS,
             "steps": SMALL_STEPS, "equal": True,
-            "committed_slots": int(on_card.metrics["committed_slots"]),
+            count: int(on_card.metrics[count]),
             "violations": int(on_card.violations),
             "seconds": time.perf_counter() - t0}))
 
 
-# ---- phase 4: the main path ---------------------------------------------
+# ---- phase 4: the main paths --------------------------------------------
 
-def main_path_run(proto, cfg, fuzz, label: str, device_line: str,
+def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
                   fault_free: bool):
-    from paxi_tpu_torch.ops import exchange as ops
     from paxi_tpu_torch.sim import simulate
 
+    spec = PATHS[path]
+    steps = spec["steps"]
     warmup_s = None
     if fault_free:
         t0 = time.perf_counter()
-        simulate(proto, cfg, GROUPS, STEPS, fuzz, seed=SEED + 1,
+        simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED + 1,
                  device="cuda")
         warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
-    res = simulate(proto, cfg, GROUPS, STEPS, fuzz, seed=SEED,
+    res = simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED,
                    device="cuda")
     wall_s = time.perf_counter() - t0
-    launches = {"wheel_deliver": ops.wheel_deliver.launches,
-                "wheel_insert": ops.wheel_insert.launches}
+    launches = launch_counts()
     n_types = len(proto.mailbox_spec(cfg))
-    committed = int(res.metrics["committed_slots"])
+    done = int(res.metrics[spec["count"]])
     row = {
         "schedule": label,
-        "metric": "committed_paxos_slots_per_sec",
-        "committed_paxos_slots_per_sec": committed / wall_s,
-        "committed_slots": committed,
+        "metric": spec["metric"],
+        spec["metric"]: done / wall_s,
+        **{k: int(res.metrics[k]) for k in ("committed_slots", "executed",
+                                            "recovered")
+           if k in res.metrics},
         "wall_s": wall_s, "warmup_s": warmup_s,
         "invariant_violations": int(res.violations),
         "inscan_violations": res.inscan_violations,
         "commit_latency": res.latency_summary(),
-        "groups": GROUPS, "replicas": REPLICAS, "steps": STEPS,
-        "ring_slots": RING, "device": device_line,
+        "groups": GROUPS, "replicas": REPLICAS, "steps": steps,
+        "config": spec["cfg"], "device": smi,
         "kernels": launches,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "counters": {k: int(v) for k, v in res.counters.items()},
     }
-    log("main_path " + json.dumps(row))
+    log(spec["line"] + " " + json.dumps(row))
     if int(res.violations) != 0 or res.inscan_violations != 0:
-        fail(f"{label}: safety violations on the main path")
-    if fault_free and committed != (STEPS - 4) * GROUPS:
-        fail(f"{label}: committed {committed} != {(STEPS - 4) * GROUPS}")
+        fail(f"{path} {label}: safety violations on the main path")
+    if fault_free:
+        want = spec["expect"](steps)
+        got = {k: int(res.metrics[k]) for k in ("committed_slots",
+                                                "executed")
+               if k in res.metrics}
+        if any(v != want for v in got.values()):
+            fail(f"{path} {label}: {got} != {want}")
+        if int(res.metrics.get("recovered", 0)) != 0:
+            fail(f"{path} {label}: recovered instances on a fault-free run")
+    want_launches = {"wheel_deliver": steps * n_types,
+                     "wheel_insert": steps * n_types,
+                     "transitive_closure": steps if path == "epaxos" else 0}
     for name, n in launches.items():
-        if n != STEPS * n_types:
-            fail(f"{label}: {name} launched {n} times, expected "
-                 f"{STEPS * n_types}")
+        if n != want_launches[name]:
+            fail(f"{path} {label}: {name} launched {n} times, expected "
+                 f"{want_launches[name]}")
     return row
 
 
-def step_split_phase(proto, cfg, fuzz, label: str, n_steps: int = 8):
+@contextlib.contextmanager
+def closure_events(acc):
+    """Record CUDA events around every closure call of the EPaxos step
+    (the kernel launch itself, not the layout copies around it)."""
+    from paxi_tpu_torch.protocols.epaxos import sim as ep
+    real = ep.transitive_closure
+
+    def timed(adj):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(adj)
+        b.record()
+        acc.append((a, b))
+        return out
+
+    ep.transitive_closure = timed
+    try:
+        yield
+    finally:
+        ep.transitive_closure = real
+
+
+def step_split_phase(path: str, proto, cfg, fuzz, label: str,
+                     n_steps: int = 8):
     """Device time of each stage of one lock-step round at the main
     path's shape, by CUDA events between the stages (the runner's
-    ``_group_step`` sequence, after ``n_steps`` warm steps)."""
+    ``_group_step`` sequence, after ``n_steps`` warm steps); for epaxos
+    also the closure kernel's share of the protocol step."""
     from paxi_tpu_torch import random as tr
     from paxi_tpu_torch.metrics.simcount import step_counts
     from paxi_tpu_torch.ops import exchange as ops
@@ -259,6 +414,7 @@ def step_split_phase(proto, cfg, fuzz, label: str, n_steps: int = 8):
     stages = ("deliver", "protocol_step", "faults_and_counts", "insert",
               "invariants", "flush")
     acc = {s: [] for s in stages}
+    closure_ms = []
     with torch.inference_mode():
         carry = init_carry(proto, cfg, fuzz, GROUPS, tr.PRNGKey(SEED), dev)
         body = make_scan_body(proto, cfg, fuzz)
@@ -267,13 +423,15 @@ def step_split_phase(proto, cfg, fuzz, label: str, n_steps: int = 8):
         for t in range(n_steps, 2 * n_steps):
             ev = [torch.cuda.Event(enable_timing=True)
                   for _ in range(len(stages) + 1)]
+            cl = []
             state, wheel, fs, rng = carry
             ev[0].record()
             rng, k_step, k_fault, k_ins = tr.split(rng, 4)
             inbox, wheel = ops.wheel_deliver(wheel)
             ev[1].record()
-            new_state, outbox = proto.step(state, inbox,
-                                           StepCtx(k_step, t, cfg))
+            with closure_events(cl):
+                new_state, outbox = proto.step(state, inbox,
+                                               StepCtx(k_step, t, cfg))
             ev[2].record()
             fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz,
                                            cfg.n_replicas)
@@ -293,11 +451,16 @@ def step_split_phase(proto, cfg, fuzz, label: str, n_steps: int = 8):
             torch.cuda.synchronize()
             for i, s in enumerate(stages):
                 acc[s].append(ev[i].elapsed_time(ev[i + 1]))
+            closure_ms.append(sum(a.elapsed_time(b) for a, b in cl))
     split = {s: statistics.mean(v) for s, v in acc.items()}
-    log("step_split " + json.dumps({"schedule": label, "groups": GROUPS,
-                                    "steps_timed": n_steps,
-                                    "mean_ms": split,
-                                    "total_ms": sum(split.values())}))
+    row = {"protocol": path, "schedule": label, "groups": GROUPS,
+           "steps_timed": n_steps, "mean_ms": split,
+           "total_ms": sum(split.values())}
+    if path == "epaxos":
+        row["closure_kernel_ms"] = statistics.mean(closure_ms)
+        row["closure_share_of_protocol_step"] = (
+            row["closure_kernel_ms"] / split["protocol_step"])
+    log("step_split " + json.dumps(row))
 
 
 def main() -> int:
@@ -312,42 +475,67 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    _build.build(["exchange"])
+    _build.build(["exchange", "closure"])
     build_s = time.perf_counter() - t0
     log("device " + json.dumps({
         "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "nvcc_s": _build.BUILD_SECONDS}))
 
-    proto = sim_protocol("paxos")
-    cfg = SimConfig(n_replicas=REPLICAS, n_slots=RING)
-    spec = proto.mailbox_spec(cfg)
+    protos = {p: sim_protocol(p) for p in PATHS}
+    cfgs = {p: SimConfig(**PATHS[p]["cfg"]) for p in PATHS}
 
     # 2. kernels against their plain versions
-    krows = kernel_phase(spec)
+    xrows = {p: exchange_phase(p, protos[p].mailbox_spec(cfgs[p]))
+             for p in PATHS}
+    crows = closure_phase()
 
     # 3. the card against the CPU
-    card_vs_cpu_phase(proto, cfg)
+    for p in PATHS:
+        card_vs_cpu_phase(p, protos[p], cfgs[p])
 
-    # 4. the main path, fault-free then fuzzed, and a step's split
-    free = main_path_run(proto, cfg, FAULT_FREE, "fault_free", smi, True)
-    main_path_run(proto, cfg, FuzzConfig(**FUZZ_ARGS), "fuzz", smi, False)
-    step_split_phase(proto, cfg, FAULT_FREE, "fault_free")
-    step_split_phase(proto, cfg, FuzzConfig(**FUZZ_ARGS), "fuzz")
+    # 4. the main paths, fault-free then fuzzed, and a step's split
+    free = {}
+    for p in PATHS:
+        free[p] = main_path_run(p, protos[p], cfgs[p], FAULT_FREE,
+                                "fault_free", smi, True)
+        main_path_run(p, protos[p], cfgs[p], FuzzConfig(**FUZZ_ARGS),
+                      "fuzz", smi, False)
+    for p in PATHS:
+        step_split_phase(p, protos[p], cfgs[p], FAULT_FREE, "fault_free")
+        step_split_phase(p, protos[p], cfgs[p], FuzzConfig(**FUZZ_ARGS),
+                         "fuzz")
 
-    # 5. the kernel summary at the main path's shape (wheel depth 1)
-    sources = {"wheel_deliver": "paxi_tpu/ops/exchange.py:93",
-               "wheel_insert": "paxi_tpu/ops/exchange.py:140"}
+    # 5. the kernel summary at this slice's main path (epaxos, fault-free;
+    # the exchange kernels at its mailbox and wheel depth 1)
+    launches = free["epaxos"]["kernels"]
+    by_path = {k: {p: free[p]["kernels"][k] for p in PATHS}
+               for k in launches}
     kernels = []
-    for kname, replaces in sources.items():
-        row = krows[(kname, 1)]
+    for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
+                            ("wheel_insert", "paxi_tpu/ops/exchange.py:140")):
+        row = xrows["epaxos"][(kname, 1)]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "paxi_tpu_torch/ops/csrc/exchange.cu",
-            "replaces": replaces, "launches": free["kernels"][kname],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "replaces": replaces, "launches": launches[kname],
+            "launches_by_path": by_path[kname],
+            "max_abs_err": max(r["max_abs_err"] for x in xrows.values()
+                               for (k, _), r in x.items() if k == kname),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    row = crows[0]              # main-path shape, the sparser density
+    kernels.append({
+        "name": "transitive_closure", "route": "cuda",
+        "source": "paxi_tpu_torch/ops/csrc/closure.cu",
+        "replaces": "paxi_tpu/ops/closure.py:52",
+        "launches": launches["transitive_closure"],
+        "launches_by_path": by_path["transitive_closure"],
+        "max_abs_err": max(r["max_abs_err"] for r in crows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Protocol plugin registry for the torch sim runtime: a name resolves to
-a ``SimProtocol``.  Only the lane-major ``paxos`` kernel is ported so far.
+a ``SimProtocol``.  The lane-major ``paxos`` and ``epaxos`` kernels are
+ported so far.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from paxi_tpu_torch.sim.types import SimProtocol
 
 _SIM_MODULES = {
     "paxos": "paxi_tpu_torch.protocols.paxos.sim",
+    "epaxos": "paxi_tpu_torch.protocols.epaxos.sim",
 }
 
 

@@ -28,8 +28,13 @@ def spot_check(old_exec, new_exec, old_base, new_base,
                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step's violation count per group, ``(G,)`` int32.
 
-    ``*_exec``/``*_base`` are ``(R, G)``; ``*_abs``/``*_cmd``/``*_commit``
-    are ``(R, S, G)``; ``kv`` is ``(R, G)`` or ``(R, K, G)``."""
+    Lane axis 0 is the replica and the group axis is last; every check
+    reduces over all the axes between.  ``*_exec``/``*_base`` are lane
+    planes ``(R, ..., G)`` (paxos ``(R, G)``; epaxos the per-key counts
+    ``(R, K, G)`` and the bases ``(R, R, G)``); ``*_abs``/``*_cmd``/
+    ``*_commit`` add the slot axis before ``G`` (``(R, S, G)``, epaxos
+    ``(R, R, I, G)``).  ``kv`` is shaped like ``*_exec`` or has one more
+    axis at position 1 (``(R, K, G)`` beside ``(R, G)``)."""
     # 1. monotone commit frontier
     v = _red(new_exec < old_exec) + _red(new_base < old_base)
 

@@ -119,7 +119,9 @@ def wheel_insert(wheel: Wheel, outbox: Mailboxes, fs, faults,
         box, wbox = outbox[name], wheel[name]
         n = box["valid"].shape[0]
         f = faults[name]
-        eff = box["valid"] & live_mask(fs, n) & ~f["drop"]
+        # a protocol may send a view (a reply plane is often its inbox
+        # transposed); the kernel takes the fault planes contiguous
+        eff = (box["valid"] & live_mask(fs, n) & ~f["drop"]).contiguous()
         ob = stack_box(box, wbox.fields)
         new_wheel[name] = WheelBox(
             wbox.fields, insert(wbox.planes, ob, eff, f["delay"], f["dup"]))

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Profile lock-step rounds of the torch port's main path on one card.
 
-    python3 scripts/torch_step_profile.py [--groups 100000] [--steps 8]
-        [--fuzz] [--top 25]
+    python3 scripts/torch_step_profile.py [--protocol paxos|epaxos]
+        [--groups 100000] [--steps 8] [--fuzz] [--top 25]
 
-Runs ``--steps`` warm rounds of the lane-major paxos kernel (5 replicas,
-64-slot ring) and then ``--steps`` rounds under ``torch.profiler``, and
-prints JSON lines: the device time per step by aten operator and by CUDA
-kernel (top ``--top`` of each), the share of the two exchange kernels, and
-the device's busy and idle share of the window's wall time.  Needs a CUDA
-card.
+Runs ``--steps`` warm rounds of a lane-major kernel at its main path's
+configuration (paxos: 5 replicas, 64-slot ring; epaxos: 5 replicas,
+16-instance window, 4 keys) and then ``--steps`` rounds under
+``torch.profiler``, and prints JSON lines: the device time per step by
+aten operator and by CUDA kernel (top ``--top`` of each), the share of the
+exchange kernels and of the closure kernel, and the device's busy and idle
+share of the window's wall time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,9 +25,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+CONFIGS = {"paxos": dict(n_replicas=5, n_slots=64),
+           "epaxos": dict(n_replicas=5, n_slots=16, n_keys=4)}
+# CUDA kernel names of the port's hand-written kernels, by group
+OWN_KERNELS = {"exchange": ("deliver_kernel", "insert_kernel"),
+               "closure": ("closure_kernel",)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--protocol", choices=sorted(CONFIGS), default="paxos")
     ap.add_argument("--groups", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--fuzz", action="store_true",
@@ -45,8 +53,8 @@ def main() -> int:
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig
     from paxi_tpu_torch.sim.runner import init_carry, make_scan_body
 
-    proto = sim_protocol("paxos")
-    cfg = SimConfig(n_replicas=5, n_slots=64)
+    proto = sim_protocol(args.protocol)
+    cfg = SimConfig(**CONFIGS[args.protocol])
     fuzz = FuzzConfig(p_drop=0.1, max_delay=3) if args.fuzz else FAULT_FREE
     dev = torch.device("cuda")
     with torch.inference_mode():
@@ -78,8 +86,8 @@ def main() -> int:
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     busy_us = sum(r[0] for r in kernels)
-    xchg_us = sum(r[0] for r in kernels if "deliver_kernel" in r[1]
-                  or "insert_kernel" in r[1])
+    own_us = {g: sum(r[0] for r in kernels if any(n in r[1] for n in names))
+              for g, names in OWN_KERNELS.items()}
     for kind, rows in (("op", ops), ("kernel", kernels)):
         for dev_us, key, count in rows[:args.top]:
             print(kind + " " + json.dumps({
@@ -87,14 +95,15 @@ def main() -> int:
                 "device_ms_per_step": dev_us / 1e3 / args.steps,
                 "share_of_busy": dev_us / busy_us}))
     print(json.dumps({
+        "protocol": args.protocol,
         "groups": args.groups, "steps_profiled": args.steps,
         "schedule": "fuzz" if args.fuzz else "fault_free",
         "wall_ms_per_step": wall_s * 1e3 / args.steps,
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_idle_share": (max(0.0, 1 - busy_us / 1e6 / wall_s)
                               if busy_us else None),
-        "exchange_kernels_share_of_busy": (xchg_us / busy_us
-                                           if busy_us else None),
+        **{f"{g}_kernels_share_of_busy": (us / busy_us if busy_us else None)
+           for g, us in own_us.items()},
         "kernels_launched_per_step": sum(r[2] for r in kernels)
         / args.steps,
         "device": torch.cuda.get_device_name(0)}))

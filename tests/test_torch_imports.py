@@ -10,7 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "paxi_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py", "scripts/torch_step_profile.py"]
+    + ["chip_smoke.py", "scripts/torch_step_profile.py",
+       "scripts/torch_ab.py"]
 BANNED = ("jax", "jaxlib", "paxi_tpu")
 
 

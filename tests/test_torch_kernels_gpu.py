@@ -1,4 +1,6 @@
-"""The two CUDA exchange kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the two
+exchange kernels and the transitive closure, and the EPaxos path on the
+card against the same run on the CPU.
 
 Run on a machine with a CUDA card:
 
@@ -11,6 +13,7 @@ a fixture, never at import).  Imports no JAX.
 import pytest
 import torch
 
+from paxi_tpu_torch.ops import closure as pc
 from paxi_tpu_torch.ops import exchange as px
 from paxi_tpu_torch.protocols.paxos.sim import mailbox_spec
 from paxi_tpu_torch.sim import mailbox as pmb
@@ -91,3 +94,83 @@ def test_main_path_goes_through_the_kernels(card):
                    FuzzConfig(p_drop=0.1, max_delay=3), seed=0)
     assert px.wheel_deliver.launches == px.wheel_insert.launches == 12 * 5
     assert int(res.violations) == 0
+
+
+# ---- the transitive closure -----------------------------------------------
+
+CLOSURE_SHAPES = {"small": [(b, n) for b in (1, 7, 300)
+                            for n in (1, 2, 5, 23, 32, 33, 80, 97, 130, 256)],
+                  "main_path": [(500_000, 80)],
+                  "n130": [(50_000, 130)],
+                  "n256": [(20_000, 256)]}
+
+
+def _closure_err(a, chunk_bytes=1_300_000_000):
+    """Max abs difference of the kernel and the plain version on ``a``,
+    the plain version taken in chunks (its float32 operands)."""
+    got = pc.closure_launch(a)
+    n = a.shape[-1]
+    chunk = max(1, chunk_bytes // (4 * n * n))
+    err = 0
+    for s in range(0, a.shape[0], chunk):
+        want = pc.closure_plain(a[s:s + chunk])
+        err = max(err, int((got[s:s + chunk].to(torch.int32)
+                            - want.to(torch.int32)).abs().max()))
+    return err
+
+
+@pytest.mark.parametrize("p", [0.02, 0.1])
+@pytest.mark.parametrize("size", CLOSURE_SHAPES)
+def test_closure_kernel_equals_plain(card, size, p):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(int(p * 1000))
+    for b, n in CLOSURE_SHAPES[size]:
+        a = torch.rand((b, n, n), generator=gen, device=card) < p
+        before = pc.transitive_closure.launches
+        assert _closure_err(a) == 0, (b, n, p)
+        assert pc.transitive_closure.launches == before + 1
+        del a
+    torch.cuda.empty_cache()
+
+
+def test_closure_chain_and_cycle(card):
+    a = torch.zeros((1, 6, 6), dtype=torch.bool, device=card)
+    for i in range(3):
+        a[0, i, i + 1] = True
+    a[0, 4, 5] = a[0, 5, 4] = True
+    got = pc.transitive_closure(a)[0].cpu()
+    assert got[0, 3] and got[1, 3] and not got[3, 0]
+    assert got[4, 4] and got[5, 5] and not got.diagonal()[:4].any()
+
+
+def test_closure_rejects_bad_arguments(card):
+    with pytest.raises(ValueError, match="N <= 256"):
+        pc.closure_launch(torch.zeros((1, 257, 257), dtype=torch.bool,
+                                      device=card))
+    with pytest.raises(TypeError):
+        pc.closure_launch(torch.zeros((1, 5, 5), dtype=torch.uint8,
+                                      device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        pc.closure_launch(torch.zeros((1, 5, 5), dtype=torch.bool,
+                                      device=card).transpose(1, 2))
+
+
+# ---- the EPaxos path ------------------------------------------------------
+
+def test_epaxos_card_equals_cpu(card):
+    from paxi_tpu_torch.convert import state_to_numpy
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, simulate
+    cfg = SimConfig(n_replicas=R, n_slots=16, n_keys=4)
+    for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3)):
+        a = simulate(sim_protocol("epaxos"), cfg, 64, 40, fuzz, seed=2,
+                     device="cpu")
+        pc.reset_launches()
+        b = simulate(sim_protocol("epaxos"), cfg, 64, 40, fuzz, seed=2)
+        assert pc.transitive_closure.launches == 40
+        sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+        for k in sa:
+            assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
+        for k in a.metrics:
+            assert int(a.metrics[k]) == int(b.metrics[k]), k
+        assert int(a.violations) == int(b.violations) == 0

@@ -159,4 +159,4 @@ def test_unported_options_raise():
         simulate(proto, SimConfig(workload=object(), **CFG), G, 1,
                  device="cpu")
     with pytest.raises(KeyError):
-        sim_protocol("epaxos")
+        sim_protocol("abd")
