@@ -8,23 +8,40 @@ non-zero exit code and no result line:
 
 1. device: the card's name and power limit, torch and CUDA versions, and
    the time to build the CUDA kernels from ``paxi_tpu_torch/ops/csrc``
-   (one ``nvcc`` a source, started together);
+   (one ``nvcc`` a source, started together: exchange, closure,
+   lane_shift);
 2. kernels against their plain versions at the main paths' shapes, exact:
    the two exchange kernels at 100,000 groups x 5 replicas for the paxos
-   and the epaxos mailbox (wheel depth 1 and 3), and the closure kernel
-   at the EPaxos execution step's shape (500,000 graphs of 80 nodes, two
-   densities) and at 130 and 256 nodes; CUDA-event times (median), bytes
-   moved and the bound;
+   and the epaxos mailbox (wheel depth 1 and 3), the closure kernel at the
+   EPaxos execution step's shape (500,000 graphs of 80 nodes, two
+   densities) and at 130 and 256 nodes, and the ring shift
+   (``make_remote_lane_shift``) at world 1 over every plane of an epaxos
+   state of 100,000 groups; CUDA-event times (median), bytes moved, the
+   bound, and for the shift ``out.copy_(x)`` as the library yardstick;
 3. card against CPU: the same seed and a small shape run on both devices
    under a fault-free and a fuzzed schedule must give identical final
-   state, metrics and violations, for paxos and for epaxos;
+   state, metrics and violations, for paxos, epaxos, sdpaxos and wpaxos;
 4. the main paths, each read with the launch counts set to 0 just before
    it: paxos at 100,000 groups x 5 replicas x 64-slot ring for 104 steps
    and epaxos at 100,000 groups x 5 replicas x 16-instance window x 4
    keys for 60 steps, both through ``simulate``, fault-free (warm-up run,
    then a timed run) and under ``FuzzConfig(p_drop=0.1, max_delay=3)``,
-   then a per-stage split of one step's device time for each;
-5. the kernel summary line, the ``nvidia-smi`` line, and last the result
+   then a per-stage split of one step's device time for each; then
+   sdpaxos (``bench_all.py``'s ``sdpaxos_tokens``, 80 steps) and wpaxos
+   (``wpaxos_3x3_grid``, 60 steps) at 100,000 groups, fault-free, with
+   their rates; each must commit its count (``NEW_PATHS``) with one
+   launch of each exchange kernel a message type a step;
+6. four ranks sharing the card (``parallel.launch.spawn``, gloo): the
+   shift kernel against its plain version at 25,000 groups a rank and the
+   shift's own path (every shard rotated once around the ring, launch
+   counts read around it); the sharded runs of paxos, sdpaxos and wpaxos
+   at 256 groups x 60 steps, fault-free and fuzzed, against the same
+   sharded runs on four CPU ranks (identical gathered state, metrics and
+   violations); ``dryrun_multichip``; and the sharded north star, paxos
+   at 100,000 groups x 5 x 64 for 104 steps over the four ranks, which
+   must commit 10,000,000 slots with 0 violations (correctness: four
+   processes time-slicing one card say nothing of four cards);
+7. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero when CUDA
@@ -42,8 +59,10 @@ import time
 
 import torch
 
+DEVICE = "cuda"
 SEED = 0
 GROUPS, REPLICAS = 100_000, 5
+SHARD_WORLD = 4                      # ranks sharing the card in phase 6
 SMALL_GROUPS, SMALL_STEPS = 256, 60
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12          # H100 SXM float32 outside tensor cores
@@ -64,6 +83,27 @@ PATHS = {
                    metric="epaxos_conflict_executed_per_sec",
                    count="executed", expect=lambda steps: 74 * GROUPS),
 }
+# the new kernels' single-card runs: bench_all.py's configurations at the
+# BASELINE.json scale, and what a fault-free run of seed SEED must commit
+NEW_PATHS = {
+    # fault-free sdpaxos commits one slot a group a step from step 4 on
+    "sdpaxos": dict(cfg=dict(n_replicas=5, n_slots=32, n_keys=16),
+                    steps=80, line="sdpaxos_path",
+                    metric="committed_sdpaxos_slots_per_sec",
+                    expect=76 * GROUPS),
+    # wpaxos draws its demand and steals from the seed, so its count is
+    # that seed's: the card equals the CPU on the same seed (phases 3 and
+    # 6) and the CPU the JAX package (tests/test_torch_wpaxos_sim.py)
+    "wpaxos": dict(cfg=dict(n_replicas=9, n_zones=3, n_objects=6,
+                            n_slots=16, steal_threshold=3, locality=0.8),
+                   steps=60, line="wpaxos_path",
+                   metric="committed_wpaxos_slots_per_sec",
+                   expect=18_041_564),
+}
+# phase 6's sharded card-against-CPU runs
+SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
+                  "sdpaxos": NEW_PATHS["sdpaxos"]["cfg"],
+                  "wpaxos": NEW_PATHS["wpaxos"]["cfg"]}
 # closure shapes: (label, graphs, nodes, edge density); the first two are
 # the EPaxos execution step's (replicas x groups graphs of R x 16 nodes)
 CLOSURE_SHAPES = (("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.02),
@@ -110,7 +150,9 @@ def launch_counts():
     from paxi_tpu_torch.ops import closure, exchange
     return {"wheel_deliver": exchange.wheel_deliver.launches,
             "wheel_insert": exchange.wheel_insert.launches,
-            "transitive_closure": closure.transitive_closure.launches}
+            "transitive_closure": closure.transitive_closure.launches,
+            "make_remote_lane_shift":
+                exchange.make_remote_lane_shift.launches}
 
 
 def reset_launch_counts() -> None:
@@ -124,7 +166,7 @@ def reset_launch_counts() -> None:
 def random_blocks(spec, d: int, gen: torch.Generator):
     """Seeded random stacked wheel blocks, outboxes and fault planes at
     the main path's shape, one set per message type."""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     R, G = REPLICAS, GROUPS
     blocks = {}
     for name, fields in spec.items():
@@ -151,7 +193,7 @@ def exchange_phase(path: str, spec):
     from paxi_tpu_torch.ops import exchange as ops
     from paxi_tpu_torch.sim import mailbox as mb
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     rows = {}
     for d in (1, 3):
@@ -231,11 +273,11 @@ def closure_phase():
     chunks that keep the plain version's float32 operands small."""
     from paxi_tpu_torch.ops import closure as C
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 7)
     rows = []
     for label, b, n, p in CLOSURE_SHAPES:
-        a = torch.rand((b, n, n), generator=gen, device="cuda") < p
+        a = torch.rand((b, n, n), generator=gen, device=DEVICE) < p
         got = C.closure_launch(a)
         chunk = max(1, CLOSURE_CHUNK_BYTES // (4 * n * n))
         err, ors = 0, 0
@@ -291,16 +333,15 @@ def compare_runs(a, b, label: str) -> None:
         fail(f"{label}: violations differ")
 
 
-def card_vs_cpu_phase(path: str, proto, cfg):
+def card_vs_cpu_phase(path: str, proto, cfg, count: str):
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, simulate
-    count = PATHS[path]["count"]
     for label, fuzz in (("fault_free", FAULT_FREE),
                         ("fuzz", FuzzConfig(**FUZZ_ARGS))):
         t0 = time.perf_counter()
         on_cpu = simulate(proto, cfg, SMALL_GROUPS, SMALL_STEPS, fuzz,
                           seed=SEED, device="cpu")
         on_card = simulate(proto, cfg, SMALL_GROUPS, SMALL_STEPS, fuzz,
-                           seed=SEED, device="cuda")
+                           seed=SEED, device=DEVICE)
         compare_runs(on_cpu, on_card, f"{path} {label}")
         log("card_vs_cpu " + json.dumps({
             "protocol": path, "schedule": label, "groups": SMALL_GROUPS,
@@ -322,13 +363,13 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
     if fault_free:
         t0 = time.perf_counter()
         simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED + 1,
-                 device="cuda")
+                 device=DEVICE)
         warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     res = simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED,
-                   device="cuda")
+                   device=DEVICE)
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
     n_types = len(proto.mailbox_spec(cfg))
@@ -364,7 +405,8 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
             fail(f"{path} {label}: recovered instances on a fault-free run")
     want_launches = {"wheel_deliver": steps * n_types,
                      "wheel_insert": steps * n_types,
-                     "transitive_closure": steps if path == "epaxos" else 0}
+                     "transitive_closure": steps if path == "epaxos" else 0,
+                     "make_remote_lane_shift": 0}
     for name, n in launches.items():
         if n != want_launches[name]:
             fail(f"{path} {label}: {name} launched {n} times, expected "
@@ -410,7 +452,7 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
                                            make_scan_body)
     from paxi_tpu_torch.sim.types import StepCtx
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     stages = ("deliver", "protocol_step", "faults_and_counts", "insert",
               "invariants", "flush")
     acc = {s: [] for s in stages}
@@ -463,6 +505,316 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
     log("step_split " + json.dumps(row))
 
 
+def new_path_run(path: str, smi: str):
+    """A new kernel's single-card run at 100,000 groups, fault-free, with
+    its rate; its committed count and launch counts (read around it) must
+    be the expected ones."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig, simulate
+
+    spec = NEW_PATHS[path]
+    proto, cfg = sim_protocol(path), SimConfig(**spec["cfg"])
+    steps = spec["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(proto, cfg, GROUPS, steps, seed=SEED, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    done = int(res.metrics["committed_slots"])
+    row = {"schedule": "fault_free", "metric": spec["metric"],
+           spec["metric"]: done / wall_s, "committed_slots": done,
+           "wall_s": wall_s, "invariant_violations": int(res.violations),
+           "inscan_violations": res.inscan_violations,
+           "commit_latency": res.latency_summary(),
+           "groups": GROUPS, "steps": steps, "config": spec["cfg"],
+           "device": smi, "kernels": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           **{k: int(v) for k, v in res.metrics.items()
+              if k in ("steals", "commands_proposed")}}
+    log(spec["line"] + " " + json.dumps(row))
+    if int(res.violations) != 0 or res.inscan_violations != 0:
+        fail(f"{path}: safety violations")
+    if done != spec["expect"]:
+        fail(f"{path}: committed {done}, expected {spec['expect']}")
+    n_types = len(proto.mailbox_spec(cfg))
+    want_launches = {"wheel_deliver": steps * n_types,
+                     "wheel_insert": steps * n_types,
+                     "transitive_closure": 0, "make_remote_lane_shift": 0}
+    if launches != want_launches:
+        fail(f"{path}: kernel launches {launches}, expected "
+             f"{want_launches}")
+    return row
+
+
+# ---- the ring shift (make_remote_lane_shift) -----------------------------
+
+def epaxos_planes(groups: int, device, seed: int):
+    """Every plane of an epaxos state of ``groups`` groups at the main
+    path's configuration, filled with seeded random values of its dtype
+    (the shift moves bytes; what they hold does not matter to it)."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig
+    state = sim_protocol("epaxos").init_state(
+        SimConfig(**PATHS["epaxos"]["cfg"]), None, groups, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for k, v in state.items():
+        if v.dtype == torch.bool:
+            out[k] = torch.rand(v.shape, generator=gen, device=device) < 0.5
+        else:
+            out[k] = torch.randint(-2 ** 31, 2 ** 31 - 1, v.shape,
+                                   generator=gen, device=device,
+                                   dtype=v.dtype)
+    return out
+
+
+def shift_check(shift, mesh, planes) -> int:
+    """Max abs difference of the shift kernel and its plain version over
+    every plane (launches made here are not counted by any path)."""
+    from paxi_tpu_torch.ops import exchange as ops
+    err = 0
+    for x in planes.values():
+        got, want = shift(x), ops.lane_shift_plain(x, mesh)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+    shift.check()
+    return err
+
+
+def shift_world1_phase():
+    """The shift at world 1 over every plane of an epaxos state at the
+    main path's 100,000 groups: exact against the plain version, timed
+    beside the plain version and ``out.copy_(x)``."""
+    from paxi_tpu_torch.ops import exchange as ops
+    from paxi_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device=DEVICE)
+    planes = epaxos_planes(GROUPS, mesh.device, SEED + 11)
+    vals = list(planes.values())
+    shift = ops.make_remote_lane_shift(mesh)
+    err = shift_check(shift, mesh, planes)
+    nbytes = sum(x.numel() * x.element_size() for x in vals)
+    outs = [torch.empty_like(x) for x in vals]
+    ms = median_ms(lambda: [shift(x) for x in vals])
+    plain_ms = median_ms(lambda: [ops.lane_shift_plain(x, mesh)
+                                  for x in vals])
+    library_ms = median_ms(lambda: [o.copy_(x) for o, x in zip(outs, vals)])
+    shift.close()
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": "make_remote_lane_shift", "world": 1,
+           "shape": "epaxos state planes", "groups": GROUPS,
+           "planes": len(vals), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "out.copy_(x)", "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": "bytes", "share_of_bound": bound_ms / ms}
+    log("kernel " + json.dumps(row))
+    if err != 0:
+        fail("make_remote_lane_shift differs from its plain version at "
+             "world 1")
+    del planes, vals, outs
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---- phase 6: four ranks on the one card ---------------------------------
+
+def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
+                 n_steps: int):
+    """One sharded run, gathered on every rank; rank 0 returns
+    ``(state, metrics, violations)`` as numpy, the others None."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.parallel import gather_state, make_sharded_run
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig
+
+    run = make_sharded_run(sim_protocol(name), SimConfig(**cfg_kw),
+                           FuzzConfig(**fuzz_kw), mesh)
+    state, metrics, viol = run(tr.PRNGKey(SEED), n_groups, n_steps)
+    whole = gather_state(state, mesh, n_groups)
+    if mesh.rank:
+        return None
+    return ({k: v.cpu().numpy() for k, v in whole.items()},
+            {k: int(v) for k, v in metrics.items()}, int(viol))
+
+
+def sharded_checks():
+    """phase 6's card-against-CPU cases: (label, protocol, config, fuzz)."""
+    return [(f"{name}_{label}", name, cfg, fz)
+            for name, cfg in SHARDED_CHECKS.items()
+            for label, fz in (("fault_free", {}), ("fuzz", FUZZ_ARGS))]
+
+
+def sharded_small_rank(mesh):
+    """The card-against-CPU cases on one rank (run on either device)."""
+    return {label: sharded_case(mesh, name, cfg, fz, SMALL_GROUPS,
+                                SMALL_STEPS)
+            for label, name, cfg, fz in sharded_checks()}
+
+
+def card_rank(mesh):
+    """Everything phase 6 does on one rank sharing the card."""
+    import torch.distributed as dist
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.dryrun import dryrun_multichip
+    from paxi_tpu_torch.ops import exchange as ops
+    from paxi_tpu_torch.parallel import make_sharded_run
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FAULT_FREE, SimConfig
+
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    # the shift against its plain version at 25,000 groups a rank
+    planes = epaxos_planes(GROUPS // mesh.world, mesh.device,
+                           SEED + 100 + mesh.rank)
+    vals = list(planes.values())
+    shift = ops.make_remote_lane_shift(mesh)
+    out["shift_err"] = shift_check(shift, mesh, planes)
+    out["shift_bytes"] = sum(x.numel() * x.element_size() for x in vals)
+    dist.barrier(group=mesh.group)
+    out["shift_ms"] = median_ms(lambda: [shift(x) for x in vals], reps=10)
+    # the shift's own path: every shard once around the ring, back home
+    dist.barrier(group=mesh.group)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cur = vals
+    for _ in range(mesh.world):
+        cur = [shift(x) for x in cur]
+    shift.check()
+    out["ring_wall_s"] = time.perf_counter() - t0
+    out["ring_launches"] = launch_counts()
+    out["ring_home"] = all(torch.equal(a, b) for a, b in zip(cur, vals))
+    shift.close()
+    del planes, vals, cur
+    torch.cuda.empty_cache()
+    # the sharded runs on the card, compared with the CPU's by the parent
+    out["small"] = sharded_small_rank(mesh)
+    out["dryrun"] = dryrun_multichip(mesh, verbose=False)
+    # the full-width sharded north star
+    spec = PATHS["paxos"]
+    run = make_sharded_run(sim_protocol("paxos"), SimConfig(**spec["cfg"]),
+                           FAULT_FREE, mesh)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    dist.barrier(group=mesh.group)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, metrics, viol = run(tr.PRNGKey(SEED), GROUPS, spec["steps"])
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier(group=mesh.group)
+    out["north_star"] = {
+        "wall_s": time.perf_counter() - t0,
+        "launches": launch_counts(),
+        "metrics": {k: int(v) for k, v in metrics.items()},
+        "violations": int(viol),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+    return out
+
+
+def four_ranks_phase(smi: str):
+    """Phase 6: four ranks on the one card, then the same sharded runs on
+    four CPU ranks for the comparison.  Returns the four-rank shift row
+    and the sharded north star's row."""
+    from paxi_tpu_torch.parallel.launch import spawn
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig
+
+    t0 = time.perf_counter()
+    ranks = spawn(SHARD_WORLD, card_rank, backend="gloo", device=DEVICE,
+                  timeout=900)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = spawn(SHARD_WORLD, sharded_small_rank, device="cpu",
+                   timeout=900)[0]
+    cpu_s = time.perf_counter() - t0
+
+    # the shift over four ranks
+    err = max(r["shift_err"] for r in ranks)
+    ring_launches = sum(r["ring_launches"]["make_remote_lane_shift"]
+                        for r in ranks)
+    nbytes = ranks[0]["shift_bytes"]
+    shift_row = {"kernel": "make_remote_lane_shift", "world": SHARD_WORLD,
+           "ranks_share_one_card": True,
+           "shape": "epaxos state planes", "groups_per_rank":
+               GROUPS // SHARD_WORLD, "max_abs_err": err,
+           "ms_by_rank": [r["shift_ms"] for r in ranks],
+           "bytes_per_rank": nbytes,
+           "bound_ms": SHARD_WORLD * 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+           "ring_wall_s_by_rank": [r["ring_wall_s"] for r in ranks],
+           "ring_launches": ring_launches,
+           "ring_home": all(r["ring_home"] for r in ranks)}
+    log("kernel " + json.dumps(shift_row))
+    if err != 0:
+        fail("make_remote_lane_shift differs from its plain version over "
+             "four ranks")
+    if not shift_row["ring_home"]:
+        fail("a shard did not come home after one turn of the ring")
+    # ranks x turns x planes calls, two launches (send, receive) a call
+    n_planes = len(epaxos_planes(1, "cpu", 0))
+    want = SHARD_WORLD * SHARD_WORLD * n_planes * 2
+    if ring_launches != want:
+        fail(f"the ring path launched the shift {ring_launches} times, "
+             f"expected {want}")
+
+    # the sharded runs: card against CPU
+    card_small = ranks[0]["small"]
+    for label, name, cfg, fz in sharded_checks():
+        (sa, ma, va), (sb, mb, vb) = on_cpu[label], card_small[label]
+        for k in sa:
+            if sa[k].dtype != sb[k].dtype or not (sa[k] == sb[k]).all():
+                fail(f"sharded {label}: state plane {k} differs between "
+                     "CPU and card")
+        if ma != mb or va != vb:
+            fail(f"sharded {label}: metrics or violations differ: "
+                 f"{ma} {va} vs {mb} {vb}")
+        if vb != 0:
+            fail(f"sharded {label}: {vb} violations")
+        log("sharded_card_vs_cpu " + json.dumps({
+            "case": label, "protocol": name, "world": SHARD_WORLD,
+            "groups": SMALL_GROUPS, "steps": SMALL_STEPS, "equal": True,
+            "committed_slots": mb["committed_slots"], "violations": vb}))
+
+    # dryrun_multichip at world 4
+    for name, res in ranks[0]["dryrun"].items():
+        log("dryrun_multichip " + json.dumps({
+            "world": SHARD_WORLD, "protocol": name,
+            "committed_slots": res["metrics"]["committed_slots"],
+            "violations": res["violations"]}))
+
+    # the sharded north star
+    ns = [r["north_star"] for r in ranks]
+    m = ns[0]["metrics"]
+    steps = PATHS["paxos"]["steps"]
+    row = {"protocol": "paxos", "world": SHARD_WORLD,
+           "ranks_share_one_card": True,
+           "note": "correctness, not a rate: four processes time-slicing "
+                   "one card say nothing about four cards",
+           "groups": GROUPS, "groups_per_rank": GROUPS // SHARD_WORLD,
+           "replicas": REPLICAS, "steps": steps,
+           "config": PATHS["paxos"]["cfg"],
+           "committed_slots": m["committed_slots"],
+           "invariant_violations": ns[0]["violations"],
+           "inscan_violations": m["inscan_violations"],
+           "wall_s": max(n["wall_s"] for n in ns),
+           "peak_memory_bytes_by_rank": [n["peak_memory_bytes"] for n in ns],
+           "kernels": {k: sum(n["launches"][k] for n in ns)
+                       for k in ns[0]["launches"]},
+           "card_phase_s": card_s, "cpu_phase_s": cpu_s, "device": smi}
+    log("sharded_path " + json.dumps(row))
+    want = PATHS["paxos"]["expect"](steps)
+    if m["committed_slots"] != want:
+        fail(f"sharded north star committed {m['committed_slots']}, "
+             f"expected {want}")
+    if ns[0]["violations"] != 0 or m["inscan_violations"] != 0:
+        fail("sharded north star: safety violations")
+    n_types = len(sim_protocol("paxos").mailbox_spec(
+        SimConfig(**PATHS["paxos"]["cfg"])))
+    for n in ns:
+        if n["launches"]["wheel_deliver"] != steps * n_types \
+                or n["launches"]["wheel_insert"] != steps * n_types:
+            fail(f"sharded north star: a rank's exchange launches "
+                 f"{n['launches']} != {steps * n_types}")
+    return shift_row, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -475,7 +827,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    _build.build(["exchange", "closure"])
+    _build.build(["exchange", "closure", "lane_shift"])
     build_s = time.perf_counter() - t0
     log("device " + json.dumps({
         "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
@@ -489,10 +841,14 @@ def main() -> int:
     xrows = {p: exchange_phase(p, protos[p].mailbox_spec(cfgs[p]))
              for p in PATHS}
     crows = closure_phase()
+    srow = shift_world1_phase()
 
     # 3. the card against the CPU
     for p in PATHS:
-        card_vs_cpu_phase(p, protos[p], cfgs[p])
+        card_vs_cpu_phase(p, protos[p], cfgs[p], PATHS[p]["count"])
+    for p in NEW_PATHS:
+        card_vs_cpu_phase(p, sim_protocol(p), SimConfig(**NEW_PATHS[p]["cfg"]),
+                          "committed_slots")
 
     # 4. the main paths, fault-free then fuzzed, and a step's split
     free = {}
@@ -505,11 +861,18 @@ def main() -> int:
         step_split_phase(p, protos[p], cfgs[p], FAULT_FREE, "fault_free")
         step_split_phase(p, protos[p], cfgs[p], FuzzConfig(**FUZZ_ARGS),
                          "fuzz")
+    for p in NEW_PATHS:
+        new_path_run(p, smi)
 
-    # 5. the kernel summary at this slice's main path (epaxos, fault-free;
-    # the exchange kernels at its mailbox and wheel depth 1)
+    # 6. four ranks on the one card
+    shift4, north = four_ranks_phase(smi)
+
+    # 7. the kernel summary: launches from the epaxos main path (the one
+    # that runs all three earlier kernels), by path beside them; the shift
+    # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
-    by_path = {k: {p: free[p]["kernels"][k] for p in PATHS}
+    by_path = {k: {**{p: free[p]["kernels"][k] for p in PATHS},
+                   "sharded_north_star": north["kernels"][k]}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
@@ -536,6 +899,18 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None})
+    kernels.append({
+        "name": "make_remote_lane_shift", "route": "cuda",
+        "source": "paxi_tpu_torch/ops/csrc/lane_shift.cu",
+        "replaces": "paxi_tpu/ops/exchange.py:182",
+        "launches": shift4["ring_launches"],
+        "launches_by_path": {**by_path["make_remote_lane_shift"],
+                             "ring_four_ranks": shift4["ring_launches"]},
+        "max_abs_err": max(srow["max_abs_err"], shift4["max_abs_err"]),
+        "ms": srow["ms"], "plain_ms": srow["plain_ms"],
+        "bound_ms": srow["bound_ms"], "bound_by": "bytes",
+        "library_ms": srow["library_ms"],
+        "ms_four_ranks_one_card": shift4["ms_by_rank"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

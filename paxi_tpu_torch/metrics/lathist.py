@@ -16,14 +16,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from paxi_tpu_torch.sim.types import resolve_device
+
 N_BUCKETS = 12
 BOUNDS_STEPS = tuple(2 ** i for i in range(N_BUCKETS - 1))  # 1..1024
 
 
 def empty_hist(n_groups: int, device=None) -> torch.Tensor:
-    """Zeroed lane-major ``m_lat_hist`` plane, (N_BUCKETS, G) int32."""
+    """Zeroed lane-major ``m_lat_hist`` plane, (N_BUCKETS, G) int32, on
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
     return torch.zeros((N_BUCKETS, n_groups), dtype=torch.int32,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def hist_update(hist, dt, mask):

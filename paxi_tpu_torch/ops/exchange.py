@@ -1,25 +1,35 @@
-"""The lane-major message-exchange kernels (CUDA for Hopper).
+"""The lane-major message-exchange kernels and the ring shift between
+ranks (CUDA for Hopper).
 
 ``wheel_deliver`` and ``wheel_insert`` replace the JAX package's Pallas
 pair in ``paxi_tpu/ops/exchange.py`` and have the signatures of the plain
 exchange in ``sim/mailbox.py``.  Per message type one kernel launch moves
 the stacked ``(d, F, R, R, G)`` wheel block (``csrc/exchange.cu``).
 
+``make_remote_lane_shift(mesh)`` replaces the reference's function of the
+same name: ``shift(x)`` moves every rank's whole shard to its right-hand
+neighbour, by a copy kernel that stores straight into the neighbour's
+memory through CUDA IPC (``csrc/lane_shift.cu``).  No run path calls it,
+as in the reference; it is the staged group-migration primitive.
+
 Dispatch is by the tensors' device and nothing else: on CPU tensors each
-message type runs the plain version (``mailbox.deliver_planes`` /
-``insert_planes``); on CUDA tensors it launches the kernel or raises.  Each
-wrapper counts its kernel launches in a plain integer attribute
-(``wheel_deliver.launches``, ``wheel_insert.launches``) so a run can show
-that its main path went through the kernels.
+runs its plain version (``mailbox.deliver_planes`` / ``insert_planes`` /
+``lane_shift_plain``); on CUDA tensors it launches the kernel or raises.
+Each wrapper counts its kernel launches in a plain integer attribute
+(``wheel_deliver.launches``, ``wheel_insert.launches``,
+``make_remote_lane_shift.launches``) so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
+from paxi_tpu_torch.collectives import all_gather
 from paxi_tpu_torch.ops import _build
 from paxi_tpu_torch.sim import mailbox as mb
 
@@ -132,6 +142,187 @@ wheel_deliver.launches = 0
 wheel_insert.launches = 0
 
 
+# --------------------------------------------------------------------------
+# the ring shift between ranks (make_remote_lane_shift)
+# --------------------------------------------------------------------------
+
+_SHIFT_LIB = "lane_shift"
+_FLAG_BYTES = 256              # the five flag words, padded
+SHIFT_TIMEOUT_S = 60.0         # a wait longer than this is a broken ring
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_lib() -> ctypes.CDLL:
+    lib = _build.load(_SHIFT_LIB)
+    p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint32)
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    for fn, args in (
+            ("paxi_shift_alloc", [i32, i64, pp]),
+            ("paxi_shift_free", [i32, p]),
+            ("paxi_shift_handle", [i32, p, p]),
+            ("paxi_shift_open", [i32, p, pp]),
+            ("paxi_shift_close", [i32, p]),
+            ("paxi_shift_host_word", [i32, pp, pp]),
+            ("paxi_shift_free_host_word", [p]),
+            ("paxi_lane_shift", [i32, p, p, p, p, p, i64, i64, u32, p,
+                                 ctypes.c_uint64, p])):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = i32
+    return lib
+
+
+def _cuda_ok(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def lane_shift_plain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The plain version: every rank's ``x`` gathered, then the left
+    neighbour's (rank ``(r - 1) % world``) — the reference's stand-in, a
+    roll over the gathered axis."""
+    return all_gather(x.contiguous(), mesh)[(mesh.rank - 1) % mesh.world] \
+        .clone()
+
+
+class ShiftChannel:
+    """One shape and dtype's buffers on this rank: its receive block
+    (buffer, then the flag words), the neighbours' blocks mapped into this
+    process, the pinned timeout word, and the epoch counter.  Built by a
+    collective call: every rank makes it in the same order."""
+
+    def __init__(self, mesh, shape, dtype, timeout_s: float):
+        self.mesh, self.shape, self.dtype = mesh, tuple(shape), dtype
+        self.timeout_ns = int(timeout_s * 1e9)
+        self.nbytes = math.prod(self.shape) * torch.empty(
+            (), dtype=dtype).element_size()
+        self.flags_off = -(-max(self.nbytes, 1) // 256) * 256
+        self.dev = mesh.device.index
+        self.epoch = 0
+        lib = _shift_lib()
+        self._block, self._opened = ctypes.c_void_p(), []
+        _cuda_ok(lib.paxi_shift_alloc(self.dev,
+                                      self.flags_off + _FLAG_BYTES,
+                                      ctypes.byref(self._block)),
+                 "lane_shift buffer allocation")
+        host, devp = ctypes.c_void_p(), ctypes.c_void_p()
+        _cuda_ok(lib.paxi_shift_host_word(self.dev, ctypes.byref(host),
+                                          ctypes.byref(devp)),
+                 "lane_shift host word")
+        self._host_err, self._dev_err = host, devp
+        self._err = ctypes.c_int.from_address(host.value)
+        self.right = self.left = self._block.value
+        if mesh.world > 1:
+            self._exchange_handles(lib)
+
+    def _exchange_handles(self, lib) -> None:
+        import torch.distributed as dist
+        handle = ctypes.create_string_buffer(64)
+        _cuda_ok(lib.paxi_shift_handle(self.dev, self._block, handle),
+                 "cudaIpcGetMemHandle")
+        handles = [None] * self.mesh.world
+        dist.all_gather_object(handles, handle.raw, group=self.mesh.group)
+        peers = {}
+        for r in ((self.mesh.rank + 1) % self.mesh.world,
+                  (self.mesh.rank - 1) % self.mesh.world):
+            if r == self.mesh.rank or r in peers:
+                continue
+            ptr = ctypes.c_void_p()
+            _cuda_ok(lib.paxi_shift_open(self.dev, handles[r],
+                                         ctypes.byref(ptr)),
+                     f"cudaIpcOpenMemHandle of rank {r}")
+            peers[r] = ptr.value
+            self._opened.append(ptr.value)
+        peers[self.mesh.rank] = self._block.value
+        self.right = peers[(self.mesh.rank + 1) % self.mesh.world]
+        self.left = peers[(self.mesh.rank - 1) % self.mesh.world]
+
+    def raise_if_broken(self) -> None:
+        """Raise if a wait timed out: its code sits in the pinned word."""
+        if self._err.value:
+            raise RuntimeError(f"lane_shift: a wait timed out (code "
+                               f"{self._err.value}): the ring is broken")
+
+    def close(self) -> None:
+        """Unmap the neighbours' blocks and free this rank's (every rank
+        closes after the last shift)."""
+        lib = _shift_lib()
+        for ptr in self._opened:
+            lib.paxi_shift_close(self.dev, ptr)
+        self._opened = []
+        if self.mesh.world > 1:
+            import torch.distributed as dist
+            # every neighbour has unmapped this block before it is freed
+            dist.barrier(group=self.mesh.group)
+        lib.paxi_shift_free(self.dev, self._block)
+        lib.paxi_shift_free_host_word(self._host_err)
+
+
+def lane_shift_launch(ch: ShiftChannel, x: torch.Tensor) -> torch.Tensor:
+    """One ring shift of ``x`` on the card through channel ``ch``: the
+    output holds the left neighbour's ``x``."""
+    if not x.is_cuda:
+        raise ValueError(f"x is on {x.device}, expected a CUDA device")
+    if x.device != ch.mesh.device:
+        raise ValueError(f"x is on {x.device}, the mesh on "
+                         f"{ch.mesh.device}")
+    if x.dtype != ch.dtype or tuple(x.shape) != ch.shape:
+        raise ValueError(f"x is {x.dtype}{tuple(x.shape)}, the channel "
+                         f"{ch.dtype}{ch.shape}")
+    if not x.is_contiguous():
+        raise ValueError("x is not contiguous")
+    ch.raise_if_broken()
+    out = torch.empty_like(x)
+    ch.epoch += 1
+    err = _shift_lib().paxi_lane_shift(
+        ch.dev, x.data_ptr(), out.data_ptr(), ch._block, ch.right, ch.left,
+        ch.nbytes, ch.flags_off, ch.epoch & 0xFFFFFFFF, ch._dev_err,
+        ch.timeout_ns, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "lane_shift")
+    make_remote_lane_shift.launches += 2         # the send and receive sides
+    return out
+
+
+def make_remote_lane_shift(mesh, timeout_s: float = SHIFT_TIMEOUT_S):
+    """Build ``shift(x)``: on rank r the output is rank ``(r - 1) %
+    world``'s ``x`` (every rank's shard moves to its right neighbour).
+    Every rank calls ``shift`` with the same shapes in the same order.  On
+    CPU tensors it runs ``lane_shift_plain``; on CUDA tensors the kernel,
+    with one ``ShiftChannel`` per shape and dtype, built at first use.
+    ``shift.check()`` waits for the card and raises if a wait timed out;
+    ``shift.close()`` frees the channels."""
+    channels = {}
+
+    def shift(x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return lane_shift_plain(x, mesh)
+        if x.device.type != "cuda":
+            raise ValueError(f"no lane-shift kernel for device {x.device}")
+        key = (tuple(x.shape), x.dtype)
+        if key not in channels:
+            channels[key] = ShiftChannel(mesh, x.shape, x.dtype, timeout_s)
+        return lane_shift_launch(channels[key], x)
+
+    def check() -> None:
+        if channels:
+            torch.cuda.synchronize(mesh.device)
+        for ch in channels.values():
+            ch.raise_if_broken()
+
+    def close() -> None:
+        check()
+        for ch in channels.values():
+            ch.close()
+        channels.clear()
+
+    shift.check, shift.close, shift.channels = check, close, channels
+    return shift
+
+
+make_remote_lane_shift.launches = 0
+
+
 def reset_launches() -> None:
     wheel_deliver.launches = 0
     wheel_insert.launches = 0
+    make_remote_lane_shift.launches = 0

@@ -1,6 +1,7 @@
 """Protocol plugin registry for the torch sim runtime: a name resolves to
-a ``SimProtocol``.  The lane-major ``paxos`` and ``epaxos`` kernels are
-ported so far.
+a ``SimProtocol``.  The lane-major ``paxos``, ``epaxos``, ``sdpaxos`` and
+``wpaxos`` kernels are ported so far, with ``wpaxos_thinq1``, the seeded
+thin-read-quorum twin of ``wpaxos``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from paxi_tpu_torch.sim.types import SimProtocol
 _SIM_MODULES = {
     "paxos": "paxi_tpu_torch.protocols.paxos.sim",
     "epaxos": "paxi_tpu_torch.protocols.epaxos.sim",
+    "sdpaxos": "paxi_tpu_torch.protocols.sdpaxos.sim",
+    "wpaxos": "paxi_tpu_torch.protocols.wpaxos.sim",
+    "wpaxos_thinq1": "paxi_tpu_torch.protocols.wpaxos.sim:PROTOCOL_THINQ1",
 }
 
 
@@ -22,4 +26,5 @@ def sim_protocol(name: str) -> SimProtocol:
     except KeyError:
         raise KeyError(f"unknown or unported sim protocol {name!r}; "
                        f"known: {sorted(_SIM_MODULES)}") from None
-    return importlib.import_module(module).PROTOCOL
+    module, _, attr = module.partition(":")
+    return getattr(importlib.import_module(module), attr or "PROTOCOL")

@@ -47,7 +47,8 @@ from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.ballot_ring import argmax_i32, popcount
 from paxi_tpu_torch.sim.ring import (diag2, dst_major, require_packable,
                                      shift_deps, shift_window)
-from paxi_tpu_torch.sim.types import SimConfig, SimProtocol, StepCtx
+from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
+                                      resolve_device)
 
 NO_CMD = -1
 ST_NONE, ST_PRE, ST_ACC, ST_COMMIT = 0, 1, 2, 3
@@ -113,9 +114,10 @@ def _bcast(x, shape):
 
 
 def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
-    """The lane-major initial state; ``rng`` is unused (as in the
-    reference)."""
+    """The lane-major initial state on ``device`` (the card unless
+    ``"cpu"`` is asked for); ``rng`` is unused (as in the reference)."""
     del rng
+    device = resolve_device(device)
     R, I, K, G = cfg.n_replicas, cfg.n_slots, cfg.n_keys, n_groups
     require_packable(R)
     i32 = dict(dtype=I32, device=device)

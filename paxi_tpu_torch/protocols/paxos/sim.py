@@ -25,7 +25,8 @@ from paxi_tpu_torch.sim import cell_ring as br
 from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.cell_ring import NO_CMD
 from paxi_tpu_torch.sim.ring import require_packable
-from paxi_tpu_torch.sim.types import SimConfig, SimProtocol, StepCtx
+from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
+                                      resolve_device)
 
 
 def _no_workload(cfg: SimConfig) -> None:
@@ -55,10 +56,11 @@ def cmd_key(cmd, n_keys: int):
 
 
 def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
-    """The lane-major initial state; ``rng`` is unused (as in the
-    reference)."""
+    """The lane-major initial state on ``device`` (the card unless
+    ``"cpu"`` is asked for); ``rng`` is unused (as in the reference)."""
     _no_workload(cfg)
     del rng
+    device = resolve_device(device)
     R, S, K, G = cfg.n_replicas, cfg.n_slots, cfg.n_keys, n_groups
     require_packable(R)
     i32 = dict(dtype=torch.int32, device=device)

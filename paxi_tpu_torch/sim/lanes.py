@@ -16,13 +16,15 @@ import torch
 from paxi_tpu_torch import random as tr
 from paxi_tpu_torch.sim.mailbox import (Wheel, WheelBox,
                                        require_scenario_free)
-from paxi_tpu_torch.sim.types import FuzzConfig
+from paxi_tpu_torch.sim.types import FuzzConfig, resolve_device
 
 
 def empty_wheel(spec: Dict[str, Tuple[str, ...]], n: int, g: int,
                 fuzz: FuzzConfig, device=None) -> Wheel:
     """Zeroed timing wheel: per message type a stacked
-    ``(d, 1 + F, src, dst, G)`` int32 block."""
+    ``(d, 1 + F, src, dst, G)`` int32 block, on ``device`` (the card
+    unless ``"cpu"`` is asked for)."""
+    device = resolve_device(device)
     return {name: WheelBox(tuple(fields),
                            torch.zeros((fuzz.wheel, 1 + len(fields), n, n, g),
                                        dtype=torch.int32, device=device))
@@ -30,7 +32,9 @@ def empty_wheel(spec: Dict[str, Tuple[str, ...]], n: int, g: int,
 
 
 def fault_state_init(n: int, g: int, device=None) -> Dict[str, torch.Tensor]:
-    """Connectivity + crash masks carried through the run."""
+    """Connectivity + crash masks carried through the run, on ``device``
+    (the card unless ``"cpu"`` is asked for)."""
+    device = resolve_device(device)
     return {
         "conn": torch.ones((n, n, g), dtype=torch.bool, device=device),
         "crashed": torch.zeros((n, g), dtype=torch.bool, device=device),

@@ -29,18 +29,7 @@ from paxi_tpu_torch.ops import exchange as ops
 from paxi_tpu_torch.sim import lanes
 from paxi_tpu_torch.sim import mailbox as mb
 from paxi_tpu_torch.sim.types import (FAULT_FREE, FuzzConfig, SimConfig,
-                                      SimProtocol, StepCtx)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The run's device: ``device`` if given, else the card; raises when
-    no device was given and CUDA is absent (no silent CPU fallback)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "run the simulation on the CPU")
-    return torch.device("cuda")
+                                      SimProtocol, StepCtx, resolve_device)
 
 
 @dataclass
@@ -141,6 +130,19 @@ def make_scan_body(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig):
     return body
 
 
+def run_steps(body, carry, n_steps: int):
+    """``n_steps`` rounds of ``body`` from step 0 with no host sync:
+    ``(carry, violations, net_* counters)``, the sums int32 on the
+    carry's device."""
+    viols = torch.zeros((), dtype=torch.int32, device=carry[-1].device)
+    counts = {NET_PREFIX + k: torch.zeros_like(viols) for k in COUNTER_NAMES}
+    for t in range(n_steps):
+        carry, (viol, c) = body(carry, t)
+        viols = viols + viol
+        counts = {k: v + c[k] for k, v in counts.items()}
+    return carry, viols, counts
+
+
 def finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts):
     """Protocol metrics plus the accumulated ``net_*`` counters; the final
     state moves its group axis to the front (the public layout)."""
@@ -161,13 +163,7 @@ def make_run(proto: SimProtocol, cfg: SimConfig,
     def run(rng: torch.Tensor, n_groups: int, n_steps: int):
         with torch.inference_mode():
             carry = init_carry(proto, cfg, fuzz, n_groups, rng, dev)
-            viols = torch.zeros((), dtype=torch.int32, device=dev)
-            counts = {NET_PREFIX + k: torch.zeros_like(viols)
-                      for k in COUNTER_NAMES}
-            for t in range(n_steps):
-                carry, (viol, c) = body(carry, t)
-                viols = viols + viol
-                counts = {k: v + c[k] for k, v in counts.items()}
+            carry, viols, counts = run_steps(body, carry, n_steps)
             return finish_run(proto, cfg, carry, viols, counts)
 
     return run

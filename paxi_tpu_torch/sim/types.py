@@ -95,6 +95,18 @@ class FuzzConfig:
 FAULT_FREE = FuzzConfig()
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a public entry point runs on: ``device`` if given, else
+    the card; raises when no device was given and CUDA is absent (no
+    silent CPU fallback)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the simulation on the CPU")
+    return torch.device("cuda")
+
+
 class StepCtx(NamedTuple):
     """Per-step context handed to protocol transition functions."""
 

@@ -70,3 +70,64 @@ def assert_tree_equal(want, got, path="") -> None:
     a, b = np.asarray(a), np.asarray(b)
     assert a.dtype == b.dtype, f"{path}: dtype {a.dtype} != {b.dtype}"
     np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def run_pair(name: str, cfg_kw: dict, fuzz_kw: dict, g: int, t: int,
+             seed: int):
+    """One run of the kernel registered as ``name`` in both packages on
+    the same seed: ``(JAX SimResult, port SimResult)``, the port's on the
+    CPU."""
+    import jax.random as jr
+    from paxi_tpu.protocols import sim_protocol as jax_protocol
+    from paxi_tpu.sim import FuzzConfig as JFuzz
+    from paxi_tpu.sim import SimConfig as JCfg
+    from paxi_tpu.sim import SimResult as JResult
+    from paxi_tpu.sim import make_run as jax_make_run
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig, make_run
+    from paxi_tpu_torch.sim.runner import SimResult
+
+    js, jm, jv = jax_make_run(jax_protocol(name), JCfg(**cfg_kw),
+                              JFuzz(**fuzz_kw))(jr.PRNGKey(seed), g, t)
+    ps, pm, pv = make_run(sim_protocol(name), SimConfig(**cfg_kw),
+                          FuzzConfig(**fuzz_kw), device="cpu")(
+        tr.PRNGKey(seed), g, t)
+    return (JResult(state=js, metrics=jm, violations=jv, steps=t, groups=g),
+            SimResult(state=ps, metrics=pm, violations=pv, steps=t,
+                      groups=g))
+
+
+def assert_one_step_from_mid_run_carry(name: str, cfg_kw: dict,
+                                       fuzz_kw: dict, g: int, seed: int,
+                                       t0: int) -> None:
+    """Step ``t0`` of a JAX run, taken as a carry, converted, and advanced
+    one step by each package: the same carry, violations and counters
+    come out."""
+    import jax
+    import jax.random as jr
+    from paxi_tpu.protocols import sim_protocol as jax_protocol
+    from paxi_tpu.sim import FuzzConfig as JFuzz
+    from paxi_tpu.sim import SimConfig as JCfg
+    from paxi_tpu.sim.runner import continue_run, init_carry
+    from paxi_tpu_torch import convert
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig
+    from paxi_tpu_torch.sim.runner import make_scan_body
+
+    proto, cfg, fuzz = jax_protocol(name), JCfg(**cfg_kw), JFuzz(**fuzz_kw)
+    carry = init_carry(proto, cfg, fuzz, g, jr.PRNGKey(seed))
+    _, carry = continue_run(proto, cfg, carry, 0, t0, fuzz)
+    np_carry = jax.device_get(carry)
+    res, new_carry = continue_run(proto, cfg, carry, t0, 1, fuzz)
+
+    body = make_scan_body(sim_protocol(name), SimConfig(**cfg_kw),
+                          FuzzConfig(**fuzz_kw))
+    with torch.inference_mode():
+        p_carry, (viol, counts) = body(
+            convert.carry_from_numpy(np_carry, "cpu"), t0)
+    assert_tree_equal(jax.device_get(new_carry),
+                      convert.carry_to_numpy(p_carry), "carry")
+    assert_tree_equal(res.violations, viol, "violations")
+    for k, v in counts.items():
+        assert_tree_equal(res.metrics[k], v, k)

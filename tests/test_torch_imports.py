@@ -32,6 +32,8 @@ def _imported(tree):
 
 def test_files_found():
     assert "paxi_tpu_torch/sim/runner.py" in FILES
+    assert "paxi_tpu_torch/parallel/mesh.py" in FILES
+    assert "paxi_tpu_torch/dryrun.py" in FILES
     assert len(FILES) > 15
 
 
@@ -50,6 +52,9 @@ def test_no_jax_platform_setting(path):
 
 
 def test_registry_modules_are_in_the_port():
-    from paxi_tpu_torch.protocols import _SIM_MODULES
+    from paxi_tpu_torch.protocols import _SIM_MODULES, sim_protocol
     assert all(m.startswith("paxi_tpu_torch.")
                for m in _SIM_MODULES.values())
+    assert {"sdpaxos", "wpaxos", "wpaxos_thinq1"} <= set(_SIM_MODULES)
+    for name in _SIM_MODULES:
+        assert sim_protocol(name).name == name

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the two
-exchange kernels and the transitive closure, and the EPaxos path on the
-card against the same run on the CPU.
+exchange kernels, the transitive closure and the ring shift (at world 1
+and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
+paths on the card against the same runs on the CPU, and a sharded run of
+four ranks on the card against the same ranks on the CPU.
 
 Run on a machine with a CUDA card:
 
@@ -174,3 +176,123 @@ def test_epaxos_card_equals_cpu(card):
         for k in a.metrics:
             assert int(a.metrics[k]) == int(b.metrics[k]), k
         assert int(a.violations) == int(b.violations) == 0
+
+
+# ---- the ring shift (make_remote_lane_shift) ------------------------------
+
+SHIFT_CASES = [((5, 16, 3), torch.int32), ((7,), torch.bool),
+               ((1_000_003,), torch.uint8), ((5, 5, 16, 5, 4096), torch.int32)]
+
+
+def test_shift_kernel_equals_plain_at_world_one(card):
+    from paxi_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    assert mesh.world == 1 and mesh.device.type == "cuda"
+    shift = px.make_remote_lane_shift(mesh)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    for epoch in range(3):
+        for shape, dtype in SHIFT_CASES:
+            x = torch.randint(0, 2 if dtype == torch.bool else 100, shape,
+                              generator=gen, device=card).to(dtype)
+            before = px.make_remote_lane_shift.launches
+            got = shift(x)
+            assert px.make_remote_lane_shift.launches == before + 2
+            want = px.lane_shift_plain(x, mesh)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(got, x), \
+                (epoch, shape)
+    shift.check()
+    shift.close()
+
+
+def test_shift_wrapper_rejects_bad_arguments(card):
+    from paxi_tpu_torch.parallel import make_mesh
+    shift = px.make_remote_lane_shift(make_mesh())
+    x = torch.zeros((4, 6), dtype=torch.int32, device=card)
+    shift(x)
+    ch = shift.channels[((4, 6), torch.int32)]
+    with pytest.raises(ValueError, match="contiguous"):
+        px.lane_shift_launch(ch, torch.zeros((6, 4), dtype=torch.int32,
+                                             device=card).t())
+    with pytest.raises(ValueError, match="CUDA"):
+        px.lane_shift_launch(ch, x.cpu())
+    with pytest.raises(ValueError, match="channel"):
+        px.lane_shift_launch(ch, torch.zeros((4, 7), dtype=torch.int32,
+                                             device=card))
+    with pytest.raises(ValueError, match="channel"):
+        px.lane_shift_launch(ch, x.to(torch.int64))
+    shift.close()
+
+
+def test_shift_broken_ring_raises(card):
+    """A wait that never ends times out and raises instead of hanging:
+    the channel's epoch is set ahead of its "free" flag, as if the
+    neighbour had never copied the last shard out."""
+    from paxi_tpu_torch.parallel import make_mesh
+    shift = px.make_remote_lane_shift(make_mesh(), timeout_s=0.5)
+    x = torch.arange(24, dtype=torch.int32, device=card)
+    assert torch.equal(shift(x), x)
+    shift.check()
+    shift.channels[((24,), torch.int32)].epoch += 3
+    shift(x)
+    with pytest.raises(RuntimeError, match="timed out"):
+        shift.check()
+    with pytest.raises(RuntimeError, match="timed out"):
+        shift(x)
+
+
+def test_shift_ring_over_four_ranks_on_one_card(card):
+    """Four ranks on the one card (gloo): ten epochs of new data each,
+    every rank's output equal to its left neighbour's input — the free
+    flag holds a sender until its last shard was copied out."""
+    import _torch_ranks
+    from paxi_tpu_torch.parallel.launch import spawn
+    results = spawn(4, _torch_ranks.shift_ring_on_card, 10, (5, 16, 777),
+                    backend="gloo", device="cuda", timeout=600)
+    for equal, launches in results:
+        assert equal == [True] * 10
+        assert launches == 2 * 10               # send and receive a call
+
+
+# ---- the sdpaxos and wpaxos paths, and the sharded path --------------------
+
+@pytest.mark.parametrize("name, cfg", [
+    ("sdpaxos", dict(n_replicas=5, n_slots=16, n_keys=8)),
+    ("wpaxos", dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
+                    steal_threshold=3, locality=0.8))])
+def test_card_equals_cpu(card, name, cfg):
+    from paxi_tpu_torch.convert import state_to_numpy
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, simulate
+    for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3)):
+        a = simulate(sim_protocol(name), SimConfig(**cfg), 64, 40, fuzz,
+                     seed=2, device="cpu")
+        px.reset_launches()
+        b = simulate(sim_protocol(name), SimConfig(**cfg), 64, 40, fuzz,
+                     seed=2)
+        n_types = len(sim_protocol(name).mailbox_spec(SimConfig(**cfg)))
+        assert px.wheel_deliver.launches == 40 * n_types
+        sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+        for k in sa:
+            assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
+        for k in a.metrics:
+            assert int(a.metrics[k]) == int(b.metrics[k]), k
+        assert int(a.violations) == int(b.violations) == 0
+
+
+def test_sharded_run_on_card_equals_cpu(card):
+    import _torch_ranks
+    from paxi_tpu_torch.parallel.launch import spawn
+    case = ("paxos", dict(n_replicas=5, n_slots=16),
+            dict(p_drop=0.1, max_delay=3), 10, 30, 3)
+    on_cpu = spawn(4, _torch_ranks.sharded_case, *case, device="cpu")
+    on_card = spawn(4, _torch_ranks.sharded_case, *case, backend="gloo",
+                    device="cuda", timeout=600)
+    for a, b in zip(on_cpu, on_card):
+        for k in a[0]:
+            assert a[0][k].dtype == b[0][k].dtype, k
+            assert (a[0][k] == b[0][k]).all(), k
+        assert {k: int(v) for k, v in a[1].items()} \
+            == {k: int(v) for k, v in b[1].items()}
+        assert int(a[2]) == int(b[2]) == 0

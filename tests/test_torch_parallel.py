@@ -1,0 +1,185 @@
+"""The sharded path: the port's ``make_sharded_run`` over four CPU ranks
+(``parallel.launch.spawn``, gloo), gathered with ``gather_state``, against
+``paxi_tpu.parallel.make_sharded_run`` over four virtual JAX devices on the
+same seed, bit for bit — every gathered state plane, every summed metric
+including the net_* counters, and the violations — for paxos fault-free,
+fuzzed and padded (10 groups over 4 ranks), epaxos fuzzed, and the dry
+run's wpaxos and sdpaxos cases; world 1 against a one-device mesh; the
+port's ``dryrun_multichip`` against the JAX runs it mirrors; and the ring
+shift's plain version against the reference's stand-in, a roll of the
+gathered axis."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import jax.random as jr  # noqa: E402
+import torch  # noqa: E402
+
+from paxi_tpu.parallel import make_mesh as jax_make_mesh  # noqa: E402
+from paxi_tpu.parallel import make_sharded_run as jax_sharded  # noqa: E402
+from paxi_tpu.protocols import sim_protocol as jax_protocol  # noqa: E402
+from paxi_tpu.sim import FuzzConfig as JFuzz  # noqa: E402
+from paxi_tpu.sim import SimConfig as JCfg  # noqa: E402
+
+import _torch_ranks  # noqa: E402
+from _torch_parity import assert_tree_equal  # noqa: E402
+from paxi_tpu_torch import dryrun  # noqa: E402
+from paxi_tpu_torch import random as tr  # noqa: E402
+from paxi_tpu_torch.ops.exchange import make_remote_lane_shift  # noqa: E402
+from paxi_tpu_torch.parallel import (gather_state, make_mesh,  # noqa: E402
+                                     make_sharded_pinned_run,
+                                     make_sharded_run)
+from paxi_tpu_torch.parallel.launch import spawn  # noqa: E402
+from paxi_tpu_torch.protocols import sim_protocol  # noqa: E402
+from paxi_tpu_torch.sim import FuzzConfig, SimConfig  # noqa: E402
+from paxi_tpu_torch.sim.types import SimProtocol  # noqa: E402
+
+WORLD = 4
+DRY_FUZZ = dict(p_drop=0.15, max_delay=2)
+DRY = {name: cfg.__dict__ for name, cfg in dryrun.CASES}
+# label: (protocol, config, fuzz, groups, steps, seed)
+CASES = {
+    "paxos_fault_free": ("paxos", DRY["paxos"], {}, 8, 40, 3),
+    # the dry run's paxos case: fuzzed, 2 x world groups, key 0
+    "paxos_fuzz": ("paxos", DRY["paxos"], DRY_FUZZ, 8, 40, 0),
+    "paxos_pad": ("paxos", dict(n_replicas=5, n_slots=16),
+                  dict(p_drop=0.1, max_delay=3), 10, 30, 3),
+    "epaxos_fuzz": ("epaxos", dict(n_replicas=5, n_slots=16, n_keys=4),
+                    dict(p_drop=0.1, max_delay=3), 8, 20, 3),
+    "wpaxos_dryrun": ("wpaxos", DRY["wpaxos"], DRY_FUZZ, 8, 40, 0),
+    "sdpaxos_dryrun": ("sdpaxos", DRY["sdpaxos"], DRY_FUZZ, 8, 40, 0),
+}
+DRYRUN_CASES = {"paxos": "paxos_fuzz", "wpaxos": "wpaxos_dryrun",
+                "sdpaxos": "sdpaxos_dryrun"}
+# per-rank shift inputs: group-major (g_local, R, S) and lane-major
+# (R, S, g_local)
+SHIFT_SHAPES = ((3, 5, 16), (5, 16, 3))
+
+
+def _jax_run(name, cfg_kw, fuzz_kw, n_groups, n_steps, seed, n_dev=WORLD):
+    state, metrics, viol = jax_sharded(
+        jax_protocol(name), JCfg(**cfg_kw), JFuzz(**fuzz_kw),
+        mesh=jax_make_mesh(n_dev))(jr.PRNGKey(seed), n_groups, n_steps)
+    return jax.device_get((state, metrics, viol))
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """Every rank's results of the one spawn of this file."""
+    return spawn(WORLD, _torch_ranks.all_cases, CASES, SHIFT_SHAPES,
+                 device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return {label: _jax_run(*case) for label, case in CASES.items()}
+
+
+@pytest.mark.parametrize("label", CASES)
+def test_sharded_run_equals_jax(ranks, jax_runs, label):
+    j_state, j_metrics, j_viol = jax_runs[label]
+    p_state, p_metrics, p_viol = ranks[0]["cases"][label]
+    assert_tree_equal(j_state, p_state, "state")
+    assert_tree_equal(j_metrics, p_metrics, "metrics")
+    assert_tree_equal(j_viol, p_viol, "violations")
+    assert int(p_viol) == 0
+    assert any(k.startswith("net_") for k in p_metrics)
+
+
+@pytest.mark.parametrize("label", CASES)
+def test_every_rank_holds_the_same_sums_and_state(ranks, label):
+    for r in range(1, WORLD):
+        assert_tree_equal(ranks[0]["cases"][label], ranks[r]["cases"][label],
+                          f"rank {r}")
+
+
+def test_pad_groups_are_excluded_from_protocol_metrics(ranks):
+    """At 10 groups over 4 ranks the two pad groups end in their initial
+    state before the sums: summed protocol metrics equal the metrics of
+    the gathered (trimmed) state."""
+    state, metrics, _ = ranks[0]["cases"]["paxos_pad"]
+    assert state["execute"].shape[0] == 10
+    lane = {k: torch.movedim(torch.from_numpy(v), 0, -1)
+            for k, v in state.items()}
+    again = sim_protocol("paxos").metrics(lane, SimConfig(n_replicas=5,
+                                                          n_slots=16))
+    for k, v in again.items():
+        assert int(metrics[k]) == int(v), k
+
+
+def test_world_one_equals_a_one_device_mesh():
+    name, cfg_kw, fuzz_kw, g, t, seed = CASES["paxos_pad"]
+    want = _jax_run(name, cfg_kw, fuzz_kw, g, t, seed, n_dev=1)
+    mesh = make_mesh(device="cpu")
+    assert (mesh.world, mesh.rank, mesh.group) == (1, 0, None)
+    state, metrics, viol = make_sharded_run(
+        sim_protocol(name), SimConfig(**cfg_kw), FuzzConfig(**fuzz_kw),
+        mesh)(tr.PRNGKey(seed), g, t)
+    assert_tree_equal(want, (gather_state(state, mesh, g), metrics, viol),
+                      "world 1")
+
+
+@pytest.mark.parametrize("name", DRYRUN_CASES)
+def test_dryrun_multichip_sums_equal_jax(ranks, jax_runs, name):
+    got = ranks[0]["dryrun"][name]
+    _, j_metrics, j_viol = jax_runs[DRYRUN_CASES[name]]
+    assert got["violations"] == int(j_viol) == 0
+    assert got["metrics"] == {k: int(v) for k, v in j_metrics.items()}
+    assert got["metrics"]["committed_slots"] > 0
+
+
+@pytest.mark.parametrize("shape", SHIFT_SHAPES)
+@pytest.mark.parametrize("dtype", ["int32", "bool"])
+def test_shift_plain_over_four_ranks(ranks, shape, dtype):
+    """On rank r the output is rank r - 1's input; gathered, the outputs
+    are the inputs rolled by one shard along the leading axis."""
+    pairs = [ranks[r]["shift"][(shape, dtype)] for r in range(WORLD)]
+    for r in range(WORLD):
+        assert pairs[r][1].dtype == np.dtype(dtype)
+        np.testing.assert_array_equal(pairs[r][1], pairs[r - 1][0])
+    gathered_in = np.concatenate([x for x, _ in pairs])
+    gathered_out = np.concatenate([y for _, y in pairs])
+    np.testing.assert_array_equal(
+        np.asarray(jnp.roll(gathered_in, shape[0], axis=0)), gathered_out)
+
+
+@pytest.mark.parametrize("shape", SHIFT_SHAPES)
+def test_shift_plain_at_world_one(shape):
+    mesh = make_mesh(device="cpu")
+    shift = make_remote_lane_shift(mesh)
+    for x in _torch_ranks.shift_inputs(0, shape):
+        got = shift(torch.from_numpy(x))
+        np.testing.assert_array_equal(got.numpy(), x)
+        np.testing.assert_array_equal(
+            np.asarray(jnp.roll(x, shape[0], axis=0)), got.numpy())
+
+
+def test_pinned_replay_rejects_lane_major():
+    """As tests/test_parallel.py holds for the reference."""
+    with pytest.raises(NotImplementedError, match="lane-major"):
+        make_sharded_pinned_run(sim_protocol("paxos"),
+                                SimConfig(n_replicas=3, n_slots=16),
+                                FuzzConfig(), group=0,
+                                mesh=make_mesh(device="cpu"))
+
+
+def test_per_group_kernels_wait_for_their_slice():
+    per_group = SimProtocol(name="paxos_pg", mailbox_spec=None,
+                            init_state=None, step=None, metrics=None,
+                            invariants=None, batched=False)
+    with pytest.raises(NotImplementedError, match="paxos_pg"):
+        make_sharded_run(per_group, SimConfig(), mesh=make_mesh(
+            device="cpu"))
+
+
+def test_mesh_needs_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+
+
+def test_a_failing_rank_raises_with_its_traceback():
+    with pytest.raises(RuntimeError, match="rank 1 failed(.|\n)*rank 1 says"):
+        spawn(2, _torch_ranks.fail_on_rank_one, device="cpu")

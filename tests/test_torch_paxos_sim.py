@@ -160,3 +160,31 @@ def test_unported_options_raise():
                  device="cpu")
     with pytest.raises(KeyError):
         sim_protocol("abd")
+
+
+@pytest.mark.parametrize("name", ["paxos", "epaxos", "sdpaxos", "wpaxos"])
+def test_init_state_needs_a_device(monkeypatch, name):
+    """A public function that builds state, called without a device,
+    runs on the card, so without CUDA it raises instead of building on
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sim_protocol(name).init_state(SimConfig(**CFG), tr.PRNGKey(0), 4)
+    state = sim_protocol(name).init_state(SimConfig(**CFG), tr.PRNGKey(0),
+                                          4, device="cpu")
+    assert all(v.device.type == "cpu" for v in state.values())
+
+
+def test_carry_planes_need_a_device(monkeypatch):
+    from paxi_tpu_torch.metrics import lathist
+    from paxi_tpu_torch.protocols.paxos.sim import mailbox_spec
+    from paxi_tpu_torch.sim import lanes
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **kw: lathist.empty_hist(G, **kw),
+                  lambda **kw: lanes.fault_state_init(5, G, **kw),
+                  lambda **kw: lanes.empty_wheel(
+                      mailbox_spec(SimConfig(**CFG)), 5, G, FuzzConfig(),
+                      **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        build(device="cpu")
