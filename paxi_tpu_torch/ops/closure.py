@@ -24,8 +24,8 @@ import torch
 from paxi_tpu_torch.ops import _build
 
 _LIB = "closure"
-# the kernel keeps ceil(N/32) 32-bit words of a row in registers and
-# shared memory; this is the widest graph it takes (csrc/closure.cu)
+# the kernel keeps a lane's rows, ceil(N/32) 32-bit words each, in
+# registers; this is the widest graph it takes (csrc/closure.cu)
 MAX_N = 256
 
 
@@ -47,13 +47,15 @@ def closure_plain(adj: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.paxi_transitive_closure.argtypes = [p, p, i64, i32, i32, p]
+    lib.paxi_transitive_closure.argtypes = [p, p, i64, i32, p]
     lib.paxi_transitive_closure.restype = i32
     return lib
 
 
 def closure_launch(adj: torch.Tensor) -> torch.Tensor:
-    """The kernel on a contiguous CUDA ``bool[B, N, N]``, N <= MAX_N."""
+    """The kernel on a contiguous CUDA ``bool[B, N, N]``, N <= MAX_N, at
+    any byte offset (Warshall's algorithm on bit rows: the same relation
+    as ``closure_plain``)."""
     if adj.ndim != 3 or adj.shape[1] != adj.shape[2]:
         raise ValueError(f"adjacency must be (B, N, N), got "
                          f"{tuple(adj.shape)}")
@@ -69,7 +71,7 @@ def closure_launch(adj: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"closure kernel takes N <= {MAX_N}, got {n}")
     out = torch.empty_like(adj)
     err = _lib().paxi_transitive_closure(
-        adj.data_ptr(), out.data_ptr(), b, n, _n_iter(n),
+        adj.data_ptr(), out.data_ptr(), b, n,
         torch.cuda.current_stream(adj.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"transitive_closure kernel launch failed: "

@@ -8,8 +8,10 @@ the stacked ``(d, F, R, R, G)`` wheel block (``csrc/exchange.cu``).
 
 ``make_remote_lane_shift(mesh)`` replaces the reference's function of the
 same name: ``shift(x)`` moves every rank's whole shard to its right-hand
-neighbour, by a copy kernel that stores straight into the neighbour's
-memory through CUDA IPC (``csrc/lane_shift.cu``).  No run path calls it,
+neighbour, and ``shift.many(xs)`` every plane of a state at once: one copy
+launch at world 1, and over ranks a copy kernel a side that stores
+straight into the neighbour's memory through CUDA IPC
+(``csrc/lane_shift.cu``).  No run path calls it,
 as in the reference; it is the staged group-migration primitive.
 
 Dispatch is by the tensors' device and nothing else: on CPU tensors each
@@ -26,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -148,6 +151,9 @@ wheel_insert.launches = 0
 
 _SHIFT_LIB = "lane_shift"
 _FLAG_BYTES = 256              # the five flag words, padded
+SEGMENT_ALIGN = 256            # a plane's offset in the receive buffer
+UNIT_BYTES = 16                # the kernel's copy unit
+MAX_SEGMENTS = 64              # planes a launch takes (csrc kMaxSegments)
 SHIFT_TIMEOUT_S = 60.0         # a wait longer than this is a broken ring
 
 
@@ -157,6 +163,7 @@ def _shift_lib() -> ctypes.CDLL:
     p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_uint32)
     pp = ctypes.POINTER(ctypes.c_void_p)
+    pi64 = ctypes.POINTER(ctypes.c_int64)
     for fn, args in (
             ("paxi_shift_alloc", [i32, i64, pp]),
             ("paxi_shift_free", [i32, p]),
@@ -165,8 +172,9 @@ def _shift_lib() -> ctypes.CDLL:
             ("paxi_shift_close", [i32, p]),
             ("paxi_shift_host_word", [i32, pp, pp]),
             ("paxi_shift_free_host_word", [p]),
-            ("paxi_lane_shift", [i32, p, p, p, p, p, i64, i64, u32, p,
-                                 ctypes.c_uint64, p])):
+            ("paxi_lane_copy", [i32, i32, pp, pp, pi64, pi64, p]),
+            ("paxi_lane_shift", [i32, i32, pp, pp, pi64, pi64, pi64, p, p,
+                                 p, i64, u32, p, ctypes.c_uint64, p])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i32
     return lib
@@ -185,24 +193,66 @@ def lane_shift_plain(x: torch.Tensor, mesh) -> torch.Tensor:
         .clone()
 
 
-class ShiftChannel:
-    """One shape and dtype's buffers on this rank: its receive block
-    (buffer, then the flag words), the neighbours' blocks mapped into this
-    process, the pinned timeout word, and the epoch counter.  Built by a
-    collective call: every rank makes it in the same order."""
+def channel_key(xs) -> tuple:
+    """A call's channel: the ``(shape, dtype)`` of every plane, in order."""
+    return tuple((tuple(x.shape), x.dtype) for x in xs)
 
-    def __init__(self, mesh, shape, dtype, timeout_s: float):
-        self.mesh, self.shape, self.dtype = mesh, tuple(shape), dtype
+
+class ShiftLayout(NamedTuple):
+    """Where a call's planes go: their bytes, their offsets in the receive
+    buffer (each aligned to ``SEGMENT_ALIGN``), the flag words' offset after
+    them, and each plane's first 16-byte copy unit in the numbering across
+    the planes (``unit0[-1]`` is the total; a plane of ``b`` bytes has
+    ``ceil(b / 16)`` units, the last one short by ``-b % 16`` bytes)."""
+    nbytes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    flags_off: int
+    unit0: Tuple[int, ...]
+
+
+def shift_layout(key) -> ShiftLayout:
+    """The layout of the planes of channel ``key`` (``channel_key``)."""
+    nbytes = tuple(math.prod(shape) * torch.empty((), dtype=dtype)
+                   .element_size() for shape, dtype in key)
+    offsets, unit0, at, units = [], [0], 0, 0
+    for b in nbytes:
+        offsets.append(at)
+        at += -(-b // SEGMENT_ALIGN) * SEGMENT_ALIGN
+        units += -(-b // UNIT_BYTES)
+        unit0.append(units)
+    return ShiftLayout(nbytes, tuple(offsets), max(at, SEGMENT_ALIGN),
+                       tuple(unit0))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_arrays(key):
+    """``shift_layout(key)``'s bytes, offsets and first units as the C
+    arrays a launch takes (kept per key: a call's host set-up delays its
+    launch)."""
+    lay = shift_layout(key)
+    i64 = ctypes.c_int64
+    return (lay, (i64 * len(lay.nbytes))(*lay.nbytes),
+            (i64 * len(lay.offsets))(*lay.offsets),
+            (i64 * len(lay.unit0))(*lay.unit0))
+
+
+class ShiftChannel:
+    """One channel's buffers on this rank, for a ring of two ranks or more:
+    its receive block (every plane at its ``shift_layout`` offset, then the
+    flag words), the neighbours' blocks mapped into this process, the
+    pinned timeout word, and the epoch counter.  Built by a collective
+    call: every rank makes it in the same order."""
+
+    def __init__(self, mesh, key, timeout_s: float):
+        self.mesh, self.key = mesh, tuple(key)
+        self.layout = shift_layout(self.key)
         self.timeout_ns = int(timeout_s * 1e9)
-        self.nbytes = math.prod(self.shape) * torch.empty(
-            (), dtype=dtype).element_size()
-        self.flags_off = -(-max(self.nbytes, 1) // 256) * 256
         self.dev = mesh.device.index
         self.epoch = 0
         lib = _shift_lib()
         self._block, self._opened = ctypes.c_void_p(), []
         _cuda_ok(lib.paxi_shift_alloc(self.dev,
-                                      self.flags_off + _FLAG_BYTES,
+                                      self.layout.flags_off + _FLAG_BYTES,
                                       ctypes.byref(self._block)),
                  "lane_shift buffer allocation")
         host, devp = ctypes.c_void_p(), ctypes.c_void_p()
@@ -211,9 +261,7 @@ class ShiftChannel:
                  "lane_shift host word")
         self._host_err, self._dev_err = host, devp
         self._err = ctypes.c_int.from_address(host.value)
-        self.right = self.left = self._block.value
-        if mesh.world > 1:
-            self._exchange_handles(lib)
+        self._exchange_handles(lib)
 
     def _exchange_handles(self, lib) -> None:
         import torch.distributed as dist
@@ -225,7 +273,7 @@ class ShiftChannel:
         peers = {}
         for r in ((self.mesh.rank + 1) % self.mesh.world,
                   (self.mesh.rank - 1) % self.mesh.world):
-            if r == self.mesh.rank or r in peers:
+            if r in peers:
                 continue
             ptr = ctypes.c_void_p()
             _cuda_ok(lib.paxi_shift_open(self.dev, handles[r],
@@ -233,7 +281,6 @@ class ShiftChannel:
                      f"cudaIpcOpenMemHandle of rank {r}")
             peers[r] = ptr.value
             self._opened.append(ptr.value)
-        peers[self.mesh.rank] = self._block.value
         self.right = peers[(self.mesh.rank + 1) % self.mesh.world]
         self.left = peers[(self.mesh.rank - 1) % self.mesh.world]
 
@@ -246,65 +293,103 @@ class ShiftChannel:
     def close(self) -> None:
         """Unmap the neighbours' blocks and free this rank's (every rank
         closes after the last shift)."""
+        import torch.distributed as dist
         lib = _shift_lib()
         for ptr in self._opened:
             lib.paxi_shift_close(self.dev, ptr)
         self._opened = []
-        if self.mesh.world > 1:
-            import torch.distributed as dist
-            # every neighbour has unmapped this block before it is freed
-            dist.barrier(group=self.mesh.group)
+        # every neighbour has unmapped this block before it is freed
+        dist.barrier(group=self.mesh.group)
         lib.paxi_shift_free(self.dev, self._block)
         lib.paxi_shift_free_host_word(self._host_err)
 
 
-def lane_shift_launch(ch: ShiftChannel, x: torch.Tensor) -> torch.Tensor:
-    """One ring shift of ``x`` on the card through channel ``ch``: the
-    output holds the left neighbour's ``x``."""
-    if not x.is_cuda:
-        raise ValueError(f"x is on {x.device}, expected a CUDA device")
-    if x.device != ch.mesh.device:
-        raise ValueError(f"x is on {x.device}, the mesh on "
-                         f"{ch.mesh.device}")
-    if x.dtype != ch.dtype or tuple(x.shape) != ch.shape:
-        raise ValueError(f"x is {x.dtype}{tuple(x.shape)}, the channel "
-                         f"{ch.dtype}{ch.shape}")
-    if not x.is_contiguous():
-        raise ValueError("x is not contiguous")
-    ch.raise_if_broken()
-    out = torch.empty_like(x)
-    ch.epoch += 1
-    err = _shift_lib().paxi_lane_shift(
-        ch.dev, x.data_ptr(), out.data_ptr(), ch._block, ch.right, ch.left,
-        ch.nbytes, ch.flags_off, ch.epoch & 0xFFFFFFFF, ch._dev_err,
-        ch.timeout_ns, torch.cuda.current_stream(x.device).cuda_stream)
+def lane_shift_launch(xs, mesh, ch: Optional[ShiftChannel] = None):
+    """One ring shift of the planes ``xs`` on the card: each output holds
+    the left neighbour's plane.  At world 1 (``ch`` None) one copy launch
+    into fresh outputs; over ranks two launches (send, receive) through
+    ``ch``, whose key must be ``channel_key(xs)``."""
+    xs = list(xs)
+    if not 1 <= len(xs) <= MAX_SEGMENTS:
+        raise ValueError(f"a launch takes 1 to {MAX_SEGMENTS} planes, got "
+                         f"{len(xs)}")
+    for x in xs:
+        if not x.is_cuda:
+            raise ValueError(f"x is on {x.device}, expected a CUDA device")
+        if x.device != mesh.device:
+            raise ValueError(f"x is on {x.device}, the mesh on "
+                             f"{mesh.device}")
+        if not x.is_contiguous():
+            raise ValueError("x is not contiguous")
+    key = channel_key(xs)
+    if ch is None and mesh.world != 1:
+        raise ValueError(f"a ring of {mesh.world} ranks needs a channel")
+    if ch is not None and key != ch.key:
+        raise ValueError(f"the planes {key} are not the channel's {ch.key}")
+    layout, nbytes, offsets, unit0 = _layout_arrays(key)
+    if ch is not None:
+        ch.raise_if_broken()
+    outs = [torch.empty_like(x) for x in xs]
+    n, vp = len(xs), ctypes.c_void_p
+    src = (vp * n)(*[x.data_ptr() for x in xs])
+    dst = (vp * n)(*[o.data_ptr() for o in outs])
+    stream = torch.cuda.current_stream(mesh.device).cuda_stream
+    lib = _shift_lib()
+    if ch is None:
+        err = lib.paxi_lane_copy(mesh.device.index, n, src, dst, nbytes,
+                                 unit0, stream)
+        launches = 1
+    else:
+        ch.epoch += 1
+        err = lib.paxi_lane_shift(
+            ch.dev, n, src, dst, nbytes, offsets, unit0, ch._block,
+            ch.right, ch.left, layout.flags_off, ch.epoch & 0xFFFFFFFF,
+            ch._dev_err, ch.timeout_ns, stream)
+        launches = 2                      # the send and receive sides
     _raise_on(err, "lane_shift")
-    make_remote_lane_shift.launches += 2         # the send and receive sides
-    return out
+    make_remote_lane_shift.launches += launches
+    return outs
 
 
 def make_remote_lane_shift(mesh, timeout_s: float = SHIFT_TIMEOUT_S):
     """Build ``shift(x)``: on rank r the output is rank ``(r - 1) %
-    world``'s ``x`` (every rank's shard moves to its right neighbour).
-    Every rank calls ``shift`` with the same shapes in the same order.  On
-    CPU tensors it runs ``lane_shift_plain``; on CUDA tensors the kernel,
-    with one ``ShiftChannel`` per shape and dtype, built at first use.
-    ``shift.check()`` waits for the card and raises if a wait timed out;
-    ``shift.close()`` frees the channels."""
+    world``'s ``x`` (every rank's shard moves to its right neighbour), and
+    ``shift.many(xs)``, the same over a state's planes (``[shift(x) for x
+    in xs]``, the reference's ``jax.tree.map(shift, state)``) in one launch
+    at world 1 and two over ranks, for up to ``MAX_SEGMENTS`` planes (more
+    go ``MAX_SEGMENTS`` a launch).  Every rank calls with the same shapes
+    in the same order.  On CPU tensors it runs ``lane_shift_plain``; on
+    CUDA tensors the kernel, over ranks with one ``ShiftChannel`` per
+    ``channel_key``, built at first use.  ``shift.check()`` waits for the
+    card and raises if a wait timed out; ``shift.close()`` frees the
+    channels."""
     channels = {}
 
+    def many(xs):
+        xs = list(xs)
+        if all(x.device.type == "cpu" for x in xs):
+            return [lane_shift_plain(x, mesh) for x in xs]
+        for x in xs:
+            if x.device.type != "cuda":
+                raise ValueError(f"no lane-shift kernel for device "
+                                 f"{x.device}")
+        out = []
+        for i in range(0, len(xs), MAX_SEGMENTS):
+            part = xs[i:i + MAX_SEGMENTS]
+            ch = None
+            if mesh.world > 1:
+                key = channel_key(part)
+                if key not in channels:
+                    channels[key] = ShiftChannel(mesh, key, timeout_s)
+                ch = channels[key]
+            out += lane_shift_launch(part, mesh, ch)
+        return out
+
     def shift(x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return lane_shift_plain(x, mesh)
-        if x.device.type != "cuda":
-            raise ValueError(f"no lane-shift kernel for device {x.device}")
-        key = (tuple(x.shape), x.dtype)
-        if key not in channels:
-            channels[key] = ShiftChannel(mesh, x.shape, x.dtype, timeout_s)
-        return lane_shift_launch(channels[key], x)
+        return many([x])[0]
 
     def check() -> None:
-        if channels:
+        if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
         for ch in channels.values():
             ch.raise_if_broken()
@@ -315,7 +400,8 @@ def make_remote_lane_shift(mesh, timeout_s: float = SHIFT_TIMEOUT_S):
             ch.close()
         channels.clear()
 
-    shift.check, shift.close, shift.channels = check, close, channels
+    shift.many, shift.check, shift.close = many, check, close
+    shift.channels = channels
     return shift
 
 

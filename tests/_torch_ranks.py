@@ -35,9 +35,21 @@ def shift_inputs(rank: int, shape):
             rng.random(shape) < 0.5)
 
 
+def state_planes(rank: int):
+    """A state's worth of planes of mixed shapes and dtypes, with odd-sized
+    bool planes, from a seed made of the rank."""
+    rng = np.random.default_rng([rank, 7])
+    return [rng.integers(-2 ** 31, 2 ** 31, size=(5, 16, 7), dtype=np.int32),
+            rng.random((7,)) < 0.5,
+            rng.random((3, 333)) < 0.5,
+            rng.integers(0, 256, size=(1,), dtype=np.uint8),
+            rng.integers(-2 ** 31, 2 ** 31, size=(4, 5), dtype=np.int32)]
+
+
 def all_cases(mesh, cases, shift_shapes):
-    """Every sharded case, the dry run, and the shift's plain version on
-    every shape: the whole test file's rank work in one spawn."""
+    """Every sharded case, the dry run, the shift's plain version on every
+    shape, and ``shift.many`` over a state's planes: the whole test file's
+    rank work in one spawn."""
     out = {"cases": {label: sharded_case(mesh, *case)
                      for label, case in cases.items()},
            "dryrun": dryrun_multichip(mesh, verbose=False),
@@ -47,6 +59,9 @@ def all_cases(mesh, cases, shift_shapes):
         for x in shift_inputs(mesh.rank, shape):
             got = shift(torch.from_numpy(x))
             out["shift"][(shape, str(x.dtype))] = (x, got.numpy())
+    planes = state_planes(mesh.rank)
+    out["many"] = (planes, [y.numpy() for y in shift.many(
+        [torch.from_numpy(x) for x in planes])])
     return out
 
 
@@ -72,3 +87,47 @@ def shift_ring_on_card(mesh, epochs, shape):
     launches = exchange.make_remote_lane_shift.launches
     shift.close()
     return equal, launches
+
+
+def shift_many_on_card(mesh, epochs):
+    """``epochs`` calls of ``shift.many`` on the card over a state's planes
+    (new data each time), held against the plain version plane by plane:
+    ``([equal per epoch], launches)``."""
+    from paxi_tpu_torch.ops import exchange
+    shift = make_remote_lane_shift(mesh)
+    exchange.reset_launches()
+    equal = []
+    for e in range(epochs):
+        xs = [torch.from_numpy(x).to(mesh.device)
+              for x in state_planes(mesh.rank * 1000 + e)]
+        got = shift.many(xs)
+        want = [exchange.lane_shift_plain(x, mesh) for x in xs]
+        equal.append(all(bool(torch.equal(a, b)) for a, b in zip(got, want)))
+    launches = exchange.make_remote_lane_shift.launches
+    shift.close()
+    return equal, launches
+
+
+def shift_broken_ring(mesh, timeout_s):
+    """Rank 1 leaves the ring after one call: rank 0's next call waits for
+    a shard that never comes, times out and raises (at ``check`` and at
+    its next call); rank 1 waits at a barrier meanwhile.  Returns the
+    messages rank 0 saw (rank 1: [])."""
+    import torch.distributed as dist
+    shift = make_remote_lane_shift(mesh, timeout_s=timeout_s)
+    xs = [torch.arange(24, dtype=torch.int32, device=mesh.device),
+          torch.ones(5, dtype=torch.bool, device=mesh.device)]
+    shift.many(xs)
+    shift.check()
+    seen = []
+    if mesh.rank == 0:
+        shift.many(xs)
+        for call in (shift.check, lambda: shift.many(xs)):
+            try:
+                call()
+            except RuntimeError as e:
+                seen.append(str(e))
+    dist.barrier(group=mesh.group)
+    for ch in shift.channels.values():
+        ch.close()
+    return seen

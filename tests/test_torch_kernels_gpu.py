@@ -100,8 +100,9 @@ def test_main_path_goes_through_the_kernels(card):
 
 # ---- the transitive closure -----------------------------------------------
 
-CLOSURE_SHAPES = {"small": [(b, n) for b in (1, 7, 300)
-                            for n in (1, 2, 5, 23, 32, 33, 80, 97, 130, 256)],
+CLOSURE_SHAPES = {"small": [(b, n) for b in (1, 5, 7, 300)
+                            for n in (1, 2, 5, 16, 23, 31, 32, 33, 48, 80,
+                                      97, 112, 130, 256)],
                   "main_path": [(500_000, 80)],
                   "n130": [(50_000, 130)],
                   "n256": [(20_000, 256)]}
@@ -133,6 +134,24 @@ def test_closure_kernel_equals_plain(card, size, p):
         assert pc.transitive_closure.launches == before + 1
         del a
     torch.cuda.empty_cache()
+
+
+def test_closure_odd_offset_and_special_graphs(card):
+    """A slice at an odd byte offset (``adj_big[1:]`` for N = 5 starts 25
+    bytes in), and empty, full, self-loop and ring graphs, at a batch
+    that is no multiple of a block's graphs."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    big = torch.rand((301, 5, 5), generator=gen, device=card) < 0.3
+    assert big[1:].data_ptr() % 2 == 1
+    assert _closure_err(big[1:]) == 0
+    for n in (1, 2, 31, 32, 33, 80, 130, 256):
+        eye = torch.eye(n, dtype=torch.bool, device=card)
+        a = torch.stack([torch.zeros_like(eye), torch.ones_like(eye), eye,
+                         torch.roll(eye, 1, dims=1), eye])
+        before = pc.transitive_closure.launches
+        assert _closure_err(a) == 0, n
+        assert pc.transitive_closure.launches == before + 1
 
 
 def test_closure_chain_and_cycle(card):
@@ -197,7 +216,7 @@ def test_shift_kernel_equals_plain_at_world_one(card):
                               generator=gen, device=card).to(dtype)
             before = px.make_remote_lane_shift.launches
             got = shift(x)
-            assert px.make_remote_lane_shift.launches == before + 2
+            assert px.make_remote_lane_shift.launches == before + 1
             want = px.lane_shift_plain(x, mesh)
             torch.cuda.synchronize()
             assert torch.equal(got, want) and torch.equal(got, x), \
@@ -206,40 +225,62 @@ def test_shift_kernel_equals_plain_at_world_one(card):
     shift.close()
 
 
-def test_shift_wrapper_rejects_bad_arguments(card):
+def test_shift_many_equals_plain_at_world_one(card):
+    """One launch a call for a state's planes of mixed shapes and dtypes
+    (odd-sized bool planes, a plane at an odd byte offset), each equal to
+    the plain version; more than MAX_SEGMENTS planes go that many a
+    launch."""
+    import _torch_ranks
     from paxi_tpu_torch.parallel import make_mesh
-    shift = px.make_remote_lane_shift(make_mesh())
-    x = torch.zeros((4, 6), dtype=torch.int32, device=card)
-    shift(x)
-    ch = shift.channels[((4, 6), torch.int32)]
-    with pytest.raises(ValueError, match="contiguous"):
-        px.lane_shift_launch(ch, torch.zeros((6, 4), dtype=torch.int32,
-                                             device=card).t())
-    with pytest.raises(ValueError, match="CUDA"):
-        px.lane_shift_launch(ch, x.cpu())
-    with pytest.raises(ValueError, match="channel"):
-        px.lane_shift_launch(ch, torch.zeros((4, 7), dtype=torch.int32,
-                                             device=card))
-    with pytest.raises(ValueError, match="channel"):
-        px.lane_shift_launch(ch, x.to(torch.int64))
+    mesh = make_mesh()
+    shift = px.make_remote_lane_shift(mesh)
+    xs = [torch.from_numpy(x).to(card) for x in _torch_ranks.state_planes(0)]
+    odd = torch.arange(40, dtype=torch.uint8, device=card)[3:20]
+    xs.append(odd)                          # contiguous, 3 bytes in
+    before = px.make_remote_lane_shift.launches
+    got = shift.many(xs)
+    assert px.make_remote_lane_shift.launches == before + 1
+    torch.cuda.synchronize()
+    for a, x in zip(got, xs):
+        assert torch.equal(a, px.lane_shift_plain(x, mesh))
+    lots = [torch.full((i + 1,), i, dtype=torch.int32, device=card)
+            for i in range(px.MAX_SEGMENTS + 3)]
+    before = px.make_remote_lane_shift.launches
+    got = shift.many(lots)
+    assert px.make_remote_lane_shift.launches == before + 2
+    assert all(torch.equal(a, x) for a, x in zip(got, lots))
     shift.close()
 
 
-def test_shift_broken_ring_raises(card):
-    """A wait that never ends times out and raises instead of hanging:
-    the channel's epoch is set ahead of its "free" flag, as if the
-    neighbour had never copied the last shard out."""
+def test_shift_wrapper_rejects_bad_arguments(card):
+    from types import SimpleNamespace
     from paxi_tpu_torch.parallel import make_mesh
-    shift = px.make_remote_lane_shift(make_mesh(), timeout_s=0.5)
-    x = torch.arange(24, dtype=torch.int32, device=card)
-    assert torch.equal(shift(x), x)
-    shift.check()
-    shift.channels[((24,), torch.int32)].epoch += 3
-    shift(x)
-    with pytest.raises(RuntimeError, match="timed out"):
-        shift.check()
-    with pytest.raises(RuntimeError, match="timed out"):
-        shift(x)
+    mesh = make_mesh()
+    x = torch.zeros((4, 6), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        px.lane_shift_launch([torch.zeros((6, 4), dtype=torch.int32,
+                                          device=card).t()], mesh)
+    with pytest.raises(ValueError, match="CUDA"):
+        px.lane_shift_launch([x, x.cpu()], mesh)
+    with pytest.raises(ValueError, match="planes"):
+        px.lane_shift_launch([x] * (px.MAX_SEGMENTS + 1), mesh)
+    with pytest.raises(ValueError, match="channel"):
+        px.lane_shift_launch([x], mesh, SimpleNamespace(
+            key=px.channel_key([x.to(torch.int64)])))
+    with pytest.raises(ValueError, match="device cpu"):
+        px.make_remote_lane_shift(mesh).many([x, x.cpu()])
+
+
+def test_shift_broken_ring_raises(card):
+    """A wait that never ends times out and raises instead of hanging: of
+    two ranks sharing the card, rank 1 leaves the ring after one call, so
+    rank 0's receive side waits for a shard that never comes."""
+    import _torch_ranks
+    from paxi_tpu_torch.parallel.launch import spawn
+    seen = spawn(2, _torch_ranks.shift_broken_ring, 0.5, backend="gloo",
+                 device="cuda", timeout=300)
+    assert len(seen[0]) == 2 and seen[1] == []
+    assert all("timed out" in m for m in seen[0])
 
 
 def test_shift_ring_over_four_ranks_on_one_card(card):
@@ -253,6 +294,18 @@ def test_shift_ring_over_four_ranks_on_one_card(card):
     for equal, launches in results:
         assert equal == [True] * 10
         assert launches == 2 * 10               # send and receive a call
+
+
+def test_shift_many_over_four_ranks_on_one_card(card):
+    """``shift.many`` over a state's planes on four ranks sharing the card:
+    exact on every plane, two launches a call whatever the planes."""
+    import _torch_ranks
+    from paxi_tpu_torch.parallel.launch import spawn
+    results = spawn(4, _torch_ranks.shift_many_on_card, 6, backend="gloo",
+                    device="cuda", timeout=600)
+    for equal, launches in results:
+        assert equal == [True] * 6
+        assert launches == 2 * 6
 
 
 # ---- the sdpaxos and wpaxos paths, and the sharded path --------------------

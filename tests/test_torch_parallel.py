@@ -5,9 +5,10 @@ same seed, bit for bit — every gathered state plane, every summed metric
 including the net_* counters, and the violations — for paxos fault-free,
 fuzzed and padded (10 groups over 4 ranks), epaxos fuzzed, and the dry
 run's wpaxos and sdpaxos cases; world 1 against a one-device mesh; the
-port's ``dryrun_multichip`` against the JAX runs it mirrors; and the ring
+port's ``dryrun_multichip`` against the JAX runs it mirrors; the ring
 shift's plain version against the reference's stand-in, a roll of the
-gathered axis."""
+gathered axis, and ``shift.many`` over a state's planes; and the shift's
+layout code (receive-buffer offsets, copy units, channel keys)."""
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ import _torch_ranks  # noqa: E402
 from _torch_parity import assert_tree_equal  # noqa: E402
 from paxi_tpu_torch import dryrun  # noqa: E402
 from paxi_tpu_torch import random as tr  # noqa: E402
+from paxi_tpu_torch.ops import exchange as pexchange  # noqa: E402
 from paxi_tpu_torch.ops.exchange import make_remote_lane_shift  # noqa: E402
 from paxi_tpu_torch.parallel import (gather_state, make_mesh,  # noqa: E402
                                      make_sharded_pinned_run,
@@ -154,6 +156,88 @@ def test_shift_plain_at_world_one(shape):
         np.testing.assert_array_equal(got.numpy(), x)
         np.testing.assert_array_equal(
             np.asarray(jnp.roll(x, shape[0], axis=0)), got.numpy())
+
+
+def test_shift_many_plain_over_four_ranks(ranks):
+    """``shift.many`` over a state's planes (mixed shapes and dtypes, odd-
+    sized bool planes): on rank r every plane is rank r - 1's."""
+    for r in range(WORLD):
+        ins, outs = ranks[r]["many"]
+        left_ins = ranks[r - 1]["many"][0]
+        assert len(outs) == len(ins)
+        for x, y, want in zip(ins, outs, left_ins):
+            assert y.dtype == x.dtype and y.shape == x.shape
+            np.testing.assert_array_equal(y, want)
+
+
+def test_shift_many_plain_at_world_one():
+    mesh = make_mesh(device="cpu")
+    shift = make_remote_lane_shift(mesh)
+    xs = [torch.from_numpy(x) for x in _torch_ranks.state_planes(3)]
+    got = shift.many(xs)
+    assert len(got) == len(xs)
+    for x, y in zip(xs, got):
+        assert torch.equal(x, y) and y.data_ptr() != x.data_ptr()
+        assert torch.equal(y, pexchange.lane_shift_plain(x, mesh))
+    assert shift.many([]) == []
+    assert torch.equal(shift(xs[1]), xs[1])
+
+
+def test_shift_many_needs_a_kernel_device():
+    shift = make_remote_lane_shift(make_mesh(device="cpu"))
+    with pytest.raises(ValueError, match="device meta"):
+        shift.many([torch.zeros(3, device="meta")])
+    with pytest.raises(ValueError, match="no lane-shift kernel"):
+        shift.many([torch.zeros(3), torch.zeros(3, device="meta")])
+
+
+LAYOUT_KEYS = {
+    "state": (((5, 16, 7), torch.int32), ((7,), torch.bool),
+              ((3, 333), torch.bool), ((1,), torch.uint8),
+              ((4, 5), torch.int32)),
+    "one_plane": (((256,), torch.int32),),
+    "empty_plane": (((0,), torch.bool), ((17,), torch.uint8)),
+    "epaxos_like": tuple(((5, 16, 25_000), dt)
+                         for dt in (torch.int32, torch.bool) * 4),
+}
+
+
+@pytest.mark.parametrize("label", LAYOUT_KEYS)
+def test_shift_layout_offsets_units_and_tails(label):
+    key = LAYOUT_KEYS[label]
+    lay = pexchange.shift_layout(key)
+    want = [int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+            for shape, dt in key]
+    assert list(lay.nbytes) == want
+    align = pexchange.SEGMENT_ALIGN
+    assert all(o % align == 0 for o in lay.offsets) and lay.offsets[0] == 0
+    ends = [o + b for o, b in zip(lay.offsets, lay.nbytes)]
+    assert all(e <= o for e, o in zip(ends, lay.offsets[1:]))
+    assert lay.flags_off % align == 0 and lay.flags_off >= max(ends)
+    assert lay.flags_off >= align
+    unit = pexchange.UNIT_BYTES
+    assert lay.unit0[0] == 0 and len(lay.unit0) == len(key) + 1
+    for i, b in enumerate(lay.nbytes):
+        units = lay.unit0[i + 1] - lay.unit0[i]
+        assert units == -(-b // unit)
+        if units:                      # the last unit holds the byte tail
+            tail = b - unit * (units - 1)
+            assert 1 <= tail <= unit and tail == (b % unit or unit)
+
+
+def test_shift_layout_of_an_odd_bool_plane():
+    lay = pexchange.shift_layout((((7,), torch.bool), ((3,), torch.int32)))
+    assert lay.nbytes == (7, 12) and lay.offsets == (0, 256)
+    assert lay.unit0 == (0, 1, 2) and lay.flags_off == 512
+
+
+def test_channel_key_is_shapes_and_dtypes_in_order():
+    xs = [torch.zeros(3, dtype=torch.int32), torch.zeros((2, 2), dtype=bool)]
+    assert pexchange.channel_key(xs) == (((3,), torch.int32),
+                                         ((2, 2), torch.bool))
+    assert pexchange.channel_key(xs[::-1]) != pexchange.channel_key(xs)
+    assert pexchange.channel_key(xs) != pexchange.channel_key(
+        [xs[0].to(torch.int64), xs[1]])
 
 
 def test_pinned_replay_rejects_lane_major():
