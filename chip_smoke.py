@@ -12,8 +12,9 @@ non-zero exit code and no result line:
    lane_shift);
 2. kernels against their plain versions at the main paths' shapes, exact:
    the two exchange kernels at 100,000 groups x 5 replicas for the paxos
-   and the epaxos mailbox (wheel depth 1 and 3), the closure kernel at the
-   EPaxos execution step's shape (500,000 graphs of 80 nodes, two
+   and the epaxos mailbox (wheel depth 1 and 3) and at 9 replicas for the
+   wpaxos mailbox at the six-slot wheel of the wan3z scenario, the closure
+   kernel at the EPaxos execution step's shape (500,000 graphs of 80 nodes, two
    densities), on the graphs the EPaxos path itself hands the closure at
    step 30 of its fault-free and fuzzed runs, and at 130 and 256 nodes,
    and the ring shift (``make_remote_lane_shift``, one ``shift.many`` call
@@ -26,19 +27,32 @@ non-zero exit code and no result line:
 4. the main paths, each read with the launch counts set to 0 just before
    it: paxos at 100,000 groups x 5 replicas x 64-slot ring for 104 steps
    and epaxos at 100,000 groups x 5 replicas x 16-instance window x 4
-   keys for 60 steps, both through ``simulate``, fault-free (warm-up run,
-   then a timed run) and under ``FuzzConfig(p_drop=0.1, max_delay=3)``,
-   then a per-stage split of one step's device time for each; then
-   sdpaxos (``bench_all.py``'s ``sdpaxos_tokens``, 80 steps) and wpaxos
-   (``wpaxos_3x3_grid``, 60 steps) at 100,000 groups, fault-free, with
+   keys for 60 steps, both through ``simulate``, fault-free (an 8-step
+   warm-up run, then a timed run) and under
+   ``FuzzConfig(p_drop=0.1, max_delay=3)``, then a per-stage split of
+   one step's device time for each; then sdpaxos (``bench_all.py``'s
+   ``sdpaxos_tokens``, 80 steps) and wpaxos (``wpaxos_3x3_grid``, 60
+   steps) at 100,000 groups, fault-free, with
    their rates; each must commit its count (``NEW_PATHS``) with one
    launch of each exchange kernel a message type a step;
+5. record, replay, shrink, scenarios and checkpoints: the hunt's seeded
+   bug (``wpaxos_thinq1``, 9 replicas in 3 zones, under p_drop 0.05 inside
+   the wan3z zone-latency matrix) captured at 100,000 groups x 100 steps
+   (every group's schedule recorded on the card), replayed twice and from
+   its saved file to the capture's state hash, counters and latency
+   histogram, and the real wpaxos under the same schedule with 0
+   violations; the same case at the hunt's 16 groups recorded on the card
+   and on the CPU (every plane equal), then shrunk on the card (40
+   replays); wpaxos 3 x 3 under wan3z alone at 100,000 groups (bench_all's
+   ``wpaxos_wan3z_geo``) with its zone-local and cross-zone latency; and
+   the fuzzed paxos path resumed from a checkpoint (52 steps,
+   ``save_carry``, ``load_carry``, 52 more) equal to the straight run;
 6. four ranks sharing the card (``parallel.launch.spawn``, gloo): the
    shift kernel against its plain version at 25,000 groups a rank, both
    timed, and the shift's own path (every state rotated once around the
    ring by ``shift.many``, two launches a call, launch counts read around
    it); the sharded runs of paxos, sdpaxos and wpaxos
-   at 256 groups x 60 steps, fault-free and fuzzed, against the same
+   at 256 groups x 30 steps, fault-free and fuzzed, against the same
    sharded runs on four CPU ranks (identical gathered state, metrics and
    violations); ``dryrun_multichip``; and the sharded north star, paxos
    at 100,000 groups x 5 x 64 for 104 steps over the four ranks, which
@@ -66,7 +80,9 @@ DEVICE = "cuda"
 SEED = 0
 GROUPS, REPLICAS = 100_000, 5
 SHARD_WORLD = 4                      # ranks sharing the card in phase 6
-SMALL_GROUPS, SMALL_STEPS = 256, 60
+# the card-against-CPU runs (phases 3 and 6); 60 steps until phase 5 came
+SMALL_GROUPS, SMALL_STEPS = 256, 30
+WARMUP_STEPS = 8                     # the main paths' warm-up run
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 # H100 SXM int32 lanes: 64 a clock an SM, 132 SMs at 1.98 GHz (NVIDIA's
 # Hopper white paper); the closure kernel's word updates run there
@@ -118,6 +134,17 @@ CLOSURE_SHAPES = (("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.02),
                   ("n256", 20_000, 256, 0.02))
 CLOSURE_CHUNK_BYTES = 1_300_000_000  # float32 operand of the plain check
 PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
+# phase 5: the hunt's seeded-bug case (paxi_tpu/hunt/cases.py,
+# wpaxos_thinq1 under GEO3Z: p_drop 0.05 inside the wan3z zone-latency
+# matrix), captured and replayed at GROUPS, shrunk at the hunt's 16 groups
+WITNESS_CFG = dict(n_replicas=9, n_zones=3, n_objects=4, n_slots=16,
+                   steal_threshold=2, locality=0.3)
+WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 40, 0.05
+# bench_all.py's wpaxos_wan3z_geo row: wpaxos 3 x 3 under wan3z alone
+SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
+SCENARIO_STEPS = 100
+CHECKPOINT_SPLIT = 52                # of the paxos path's 104 fuzzed steps
+SCRATCH_DIR = "build/chip_smoke"     # trace and checkpoint files
 
 
 def log(msg: str) -> None:
@@ -173,11 +200,12 @@ def reset_launch_counts() -> None:
 
 # ---- phase 2: kernels against their plain versions ----------------------
 
-def random_blocks(spec, d: int, gen: torch.Generator):
+def random_blocks(spec, d: int, gen: torch.Generator,
+                  replicas: int = REPLICAS):
     """Seeded random stacked wheel blocks, outboxes and fault planes at
     the main path's shape, one set per message type."""
     dev = torch.device(DEVICE)
-    R, G = REPLICAS, GROUPS
+    R, G = replicas, GROUPS
     blocks = {}
     for name, fields in spec.items():
         F = 1 + len(fields)
@@ -197,17 +225,18 @@ def random_blocks(spec, d: int, gen: torch.Generator):
     return blocks
 
 
-def exchange_phase(path: str, spec):
+def exchange_phase(path: str, spec, depths=(1, 3),
+                   replicas: int = REPLICAS):
     """Both exchange kernels on one mailbox's blocks, one step's worth
-    (every message type), at wheel depth 1 and 3."""
+    (every message type), at each wheel depth of ``depths``."""
     from paxi_tpu_torch.ops import exchange as ops
     from paxi_tpu_torch.sim import mailbox as mb
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     rows = {}
-    for d in (1, 3):
-        blocks = random_blocks(spec, d, gen)
+    for d in depths:
+        blocks = random_blocks(spec, d, gen, replicas)
         err = {"wheel_deliver": 0, "wheel_insert": 0}
         for w, ob, eff, delay, dup in blocks.values():
             got, want = ops.deliver_launch(w), mb.deliver_planes(w)
@@ -242,7 +271,7 @@ def exchange_phase(path: str, spec):
         for name, (ms, plain_ms, nbytes) in timings.items():
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             row = {"kernel": name, "mailbox": path, "wheel_depth": d,
-                   "groups": GROUPS, "replicas": REPLICAS,
+                   "groups": GROUPS, "replicas": replicas,
                    "message_types": len(vals),
                    "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                    "bytes": nbytes, "bound_ms": bound_ms,
@@ -415,7 +444,7 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
     warmup_s = None
     if fault_free:
         t0 = time.perf_counter()
-        simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED + 1,
+        simulate(proto, cfg, GROUPS, WARMUP_STEPS, fuzz, seed=SEED + 1,
                  device=DEVICE)
         warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -464,7 +493,7 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
         if n != want_launches[name]:
             fail(f"{path} {label}: {name} launched {n} times, expected "
                  f"{want_launches[name]}")
-    return row
+    return row, res
 
 
 def closure_events(acc):
@@ -590,6 +619,274 @@ def new_path_run(path: str, smi: str):
         fail(f"{path}: kernel launches {launches}, expected "
              f"{want_launches}")
     return row
+
+
+# ---- phase 5: capture, replay, shrink, scenarios, checkpoints -------------
+
+def geo_fuzz(drop: float = GEO_DROP):
+    from paxi_tpu_torch.scenarios import NAMED
+    from paxi_tpu_torch.sim import FuzzConfig
+    return FuzzConfig(p_drop=drop, scenario=NAMED["wan3z"])
+
+
+def expect_launches(label: str, launches, steps: int, n_types: int) -> None:
+    want = {"wheel_deliver": steps * n_types,
+            "wheel_insert": steps * n_types,
+            "transitive_closure": 0, "make_remote_lane_shift": 0}
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, expected {want}")
+
+
+def meta_of(trace) -> dict:
+    """A trace's meta as its file stores it (JSON-normalized)."""
+    return json.loads(json.dumps(trace.meta))
+
+
+def witness_phase(smi: str):
+    """The thin-Q1 geo witness at GROUPS groups: capture (every group's
+    schedule recorded on the card), two replays, a save/load round trip and
+    its replay; then the real wpaxos under the same schedule.  Returns the
+    trace and the capture's launch counts."""
+    import os
+    from paxi_tpu_torch import trace as T
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig, simulate
+
+    proto, cfg, fuzz = (sim_protocol("wpaxos_thinq1"),
+                        SimConfig(**WITNESS_CFG), geo_fuzz())
+    n_types = len(proto.mailbox_spec(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr_ = T.capture(proto, cfg, fuzz, SEED, GROUPS, WITNESS_STEPS,
+                    device=DEVICE)
+    capture_s = time.perf_counter() - t0
+    launches = capture_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tr_ is None:
+        fail("wpaxos_thinq1 under GEO3Z found no violating group")
+    expect_launches("witness capture", launches, WITNESS_STEPS, n_types)
+    m = tr_.meta
+    sched_bytes = sum(v.nbytes for v in (tr_.sched["conn"],
+                                         tr_.sched["crashed"]))
+    sched_bytes += sum(v.nbytes for f in tr_.sched["faults"].values()
+                       for v in f.values())
+    log("witness_path " + json.dumps({
+        "phase": "capture", "protocol": "wpaxos_thinq1",
+        "schedule": "GEO3Z (p_drop 0.05, wan3z)", "groups": GROUPS,
+        "steps": WITNESS_STEPS, "config": WITNESS_CFG, "group": m["group"],
+        "group_violations": m["group_violations"],
+        "first_violation_step": m["first_violation_step"],
+        "n_events": tr_.n_events(), "wall_s": capture_s,
+        "recorded_schedule_bytes": sched_bytes * GROUPS,
+        "peak_memory_bytes": peak, "kernels": launches,
+        "schedule_hash": m["schedule_hash"], "device": smi}))
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = T.check_determinism(tr_, device=DEVICE)
+    replay_s = (time.perf_counter() - t0) / 2
+    launches = launch_counts()
+    expect_launches("witness replays", launches, 2 * WITNESS_STEPS, n_types)
+    for what, got, want in (
+            ("state hash", r.state_hash, m["capture_state_hash"]),
+            ("counters", r.counters, m["capture_counters"]),
+            ("latency histogram", r.lat_hist, m.get("capture_lat_hist")),
+            ("violations", r.violations, m["group_violations"])):
+        if got != want:
+            fail(f"witness replay: {what} {got} != capture's {want}")
+
+    os.makedirs(SCRATCH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    path = T.save(os.path.join(SCRATCH_DIR, "witness"), tr_)
+    loaded = T.load(path)
+    io_s = time.perf_counter() - t0
+    if meta_of(loaded) != meta_of(tr_):
+        fail("witness trace: the loaded meta differs from the saved one")
+    r2 = T.replay(loaded, device=DEVICE)
+    if r2.state_hash != m["capture_state_hash"] \
+            or r2.counters != m["capture_counters"]:
+        fail("witness trace: the loaded trace replays to another state")
+    log("witness_path " + json.dumps({
+        "phase": "replay", "replays": 3, "replay_wall_s": replay_s,
+        "state_hash": r.state_hash, "equal_to_capture": True,
+        "violations": r.violations,
+        "first_violation_step": r.first_violation_step(),
+        "file_bytes": os.path.getsize(path), "save_load_s": io_s,
+        "kernels_two_replays": launches}))
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    real = simulate(sim_protocol("wpaxos"), cfg, GROUPS, WITNESS_STEPS, fuzz,
+                    seed=SEED, device=DEVICE)
+    real_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log("witness_path " + json.dumps({
+        "phase": "real_wpaxos", "groups": GROUPS, "steps": WITNESS_STEPS,
+        "invariant_violations": int(real.violations),
+        "inscan_violations": real.inscan_violations,
+        "committed_slots": int(real.metrics["committed_slots"]),
+        "wall_s": real_s, "kernels": launches}))
+    if int(real.violations) != 0 or real.inscan_violations != 0:
+        fail("the real wpaxos violates under the witness's schedule")
+    expect_launches("real wpaxos", launches, WITNESS_STEPS, n_types)
+    return capture_launches
+
+
+def hunt_phase():
+    """The same case at the hunt's 16 groups: the record run on the card
+    against the CPU's (every schedule plane, the per-group violations, the
+    trace), then ``shrink`` on the card."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch import trace as T
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig
+    from paxi_tpu_torch.sim.checkpoint import flatten
+    from paxi_tpu_torch.sim.runner import make_recorded_run
+
+    proto, cfg, fuzz = (sim_protocol("wpaxos_thinq1"),
+                        SimConfig(**WITNESS_CFG), geo_fuzz())
+    t0 = time.perf_counter()
+    recs = {dev: make_recorded_run(proto, cfg, fuzz, device=dev)(
+        tr.PRNGKey(SEED), HUNT_GROUPS, WITNESS_STEPS)
+        for dev in ("cpu", DEVICE)}
+    a, b = (flatten({"sched": r[4], "viol_steps": r[3], "state": r[0]})
+            for r in (recs["cpu"], recs[DEVICE]))
+    for k in a:
+        if a[k].dtype != b[k].dtype or not (a[k] == b[k]).all():
+            fail(f"hunt capture: {k} differs between CPU and card")
+    traces = {dev: T.capture(proto, cfg, fuzz, SEED, HUNT_GROUPS,
+                             WITNESS_STEPS, device=dev)
+              for dev in ("cpu", DEVICE)}
+    if traces["cpu"] is None or \
+            meta_of(traces["cpu"]) != meta_of(traces[DEVICE]):
+        fail("hunt capture: the card's trace differs from the CPU's")
+    tr_ = traces[DEVICE]
+    log("witness_card_vs_cpu " + json.dumps({
+        "groups": HUNT_GROUPS, "steps": WITNESS_STEPS, "equal": True,
+        "planes_compared": len(a), "group": tr_.meta["group"],
+        "group_violations": tr_.meta["group_violations"],
+        "first_violation_step": tr_.meta["first_violation_step"],
+        "total_violations": int(recs["cpu"][2]),
+        "capture_state_hash": tr_.meta["capture_state_hash"],
+        "seconds": time.perf_counter() - t0}))
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mini, stats = T.shrink(tr_, max_trials=SHRINK_TRIALS, device=DEVICE)
+    shrink_s = time.perf_counter() - t0
+    launches = launch_counts()
+    r = T.replay(mini, device=DEVICE)
+    log("shrink_path " + json.dumps({
+        "groups": HUNT_GROUPS, **stats, "wall_s": shrink_s,
+        "replay_violations": r.violations,
+        "replay_state_hash": r.state_hash, "kernels": launches}))
+    if stats["events_after"] > stats["events_before"]:
+        fail("shrink grew the trace")
+    if not r.violations > 0 or r.violations != mini.meta["group_violations"]:
+        fail("the shrunk trace does not violate as recorded")
+    if r.state_hash != mini.meta["replay_state_hash"]:
+        fail("the shrunk trace replays to another state")
+
+
+def scenario_phase(smi: str):
+    """bench_all.py's wpaxos_wan3z_geo row at GROUPS groups: wpaxos 3 x 3
+    under the wan3z matrix alone; the zone-local and cross-zone commit
+    latency split."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.scenarios import NAMED, latency_split, with_scenario
+    from paxi_tpu_torch.sim import FAULT_FREE, SimConfig, simulate
+
+    proto, cfg = sim_protocol("wpaxos"), SimConfig(**SCENARIO_CFG)
+    fuzz = with_scenario(FAULT_FREE, NAMED["wan3z"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(proto, cfg, GROUPS, SCENARIO_STEPS, fuzz, seed=SEED,
+                   device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    done = int(res.metrics["committed_slots"])
+    row = {"protocol": "wpaxos", "schedule": "wan3z (fault-free inside)",
+           "groups": GROUPS, "steps": SCENARIO_STEPS, "config": SCENARIO_CFG,
+           "wheel_depth": fuzz.wheel, "committed_slots": done,
+           "committed_wpaxos_slots_per_sec": done / wall_s,
+           **latency_split({k: int(v) for k, v in res.metrics.items()}),
+           "steals": int(res.metrics["steals"]),
+           "invariant_violations": int(res.violations),
+           "inscan_violations": res.inscan_violations,
+           "commit_latency": res.latency_summary(), "wall_s": wall_s,
+           "kernels": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "counters": {k: int(v) for k, v in res.counters.items()},
+           "device": smi}
+    log("scenario_path " + json.dumps(row))
+    if int(res.violations) != 0 or res.inscan_violations != 0:
+        fail("wpaxos under wan3z: safety violations")
+    if done <= 0 or "commit_lat_cross_rounds" not in row:
+        fail("wpaxos under wan3z committed nothing across zones")
+    expect_launches("scenario path", launches, SCENARIO_STEPS,
+                    len(proto.mailbox_spec(cfg)))
+    return row
+
+
+def checkpoint_phase(smi: str, straight):
+    """The fuzzed paxos path at GROUPS groups, resumed from a checkpoint:
+    CHECKPOINT_SPLIT steps through ``continue_run``, ``save_carry``,
+    ``load_carry``, the rest; equal to ``straight``, phase 4's run of the
+    same seed and schedule."""
+    import os
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import (FuzzConfig, SimConfig, continue_run,
+                                    load_carry, save_carry)
+    from paxi_tpu_torch.sim.runner import init_carry
+    from paxi_tpu_torch.trace import state_hash
+
+    spec = PATHS["paxos"]
+    proto, cfg = sim_protocol("paxos"), SimConfig(**spec["cfg"])
+    fuzz, steps = FuzzConfig(**FUZZ_ARGS), spec["steps"]
+    dev = torch.device(DEVICE)
+    reset_launch_counts()
+    carry = init_carry(proto, cfg, fuzz, GROUPS, tr.PRNGKey(SEED), dev)
+    first, carry = continue_run(proto, cfg, carry, 0, CHECKPOINT_SPLIT,
+                                fuzz)
+    os.makedirs(SCRATCH_DIR, exist_ok=True)
+    path = os.path.join(SCRATCH_DIR, "paxos_carry.npz")
+    t0 = time.perf_counter()
+    save_carry(path, carry, {"step": CHECKPOINT_SPLIT})
+    save_s = time.perf_counter() - t0
+    like = init_carry(proto, cfg, fuzz, GROUPS, tr.PRNGKey(SEED + 1), dev)
+    del carry
+    t0 = time.perf_counter()
+    carry, meta = load_carry(path, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    second, carry = continue_run(proto, cfg, carry, CHECKPOINT_SPLIT,
+                                 steps - CHECKPOINT_SPLIT, fuzz)
+    launches = launch_counts()
+    h_straight, h_resumed = state_hash(straight.state), state_hash(
+        second.state)
+    diff = [k for k, v in straight.metrics.items()
+            if int(v) != int(second.metrics[k]) + (
+                int(first.metrics[k]) if k.startswith("net_") else 0)]
+    viols = int(first.violations) + int(second.violations)
+    log("checkpoint_path " + json.dumps({
+        "protocol": "paxos", "groups": GROUPS, "steps": steps,
+        "split_at": CHECKPOINT_SPLIT, "fuzz": FUZZ_ARGS,
+        "file_bytes": os.path.getsize(path), "save_s": save_s,
+        "load_s": load_s, "meta": meta, "state_hash": h_resumed,
+        "equal_to_straight_run": h_straight == h_resumed and not diff,
+        "committed_slots": int(second.metrics["committed_slots"]),
+        "invariant_violations": viols, "kernels": launches,
+        "device": smi}))
+    if h_straight != h_resumed:
+        fail("the resumed paxos run's state differs from the straight run")
+    if diff or viols != int(straight.violations) or viols != 0:
+        fail(f"the resumed paxos run differs in {diff} or violates")
+    expect_launches("checkpoint path", launches, steps,
+                    len(proto.mailbox_spec(cfg)))
+    os.remove(path)
 
 
 # ---- the ring shift (make_remote_lane_shift) -----------------------------
@@ -906,9 +1203,14 @@ def main() -> int:
     protos = {p: sim_protocol(p) for p in PATHS}
     cfgs = {p: SimConfig(**PATHS[p]["cfg"]) for p in PATHS}
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions (the exchange also on the
+    # wpaxos mailbox at the six-slot wheel of the wan3z scenario)
     xrows = {p: exchange_phase(p, protos[p].mailbox_spec(cfgs[p]))
              for p in PATHS}
+    wan_cfg = SimConfig(**SCENARIO_CFG)
+    xrows["wpaxos_wan3z"] = exchange_phase(
+        "wpaxos", sim_protocol("wpaxos").mailbox_spec(wan_cfg),
+        depths=(geo_fuzz().wheel,), replicas=wan_cfg.n_replicas)
     crows = closure_phase()
     prows = closure_path_phase()
     srow = shift_world1_phase()
@@ -921,18 +1223,26 @@ def main() -> int:
                           "committed_slots")
 
     # 4. the main paths, fault-free then fuzzed, and a step's split
-    free = {}
+    free, fuzzed = {}, {}
     for p in PATHS:
         free[p] = main_path_run(p, protos[p], cfgs[p], FAULT_FREE,
-                                "fault_free", smi, True)
-        main_path_run(p, protos[p], cfgs[p], FuzzConfig(**FUZZ_ARGS),
-                      "fuzz", smi, False)
+                                "fault_free", smi, True)[0]
+        fuzzed[p] = main_path_run(p, protos[p], cfgs[p],
+                                  FuzzConfig(**FUZZ_ARGS), "fuzz", smi,
+                                  False)[1]
     for p in PATHS:
         step_split_phase(p, protos[p], cfgs[p], FAULT_FREE, "fault_free")
         step_split_phase(p, protos[p], cfgs[p], FuzzConfig(**FUZZ_ARGS),
                          "fuzz")
     for p in NEW_PATHS:
         new_path_run(p, smi)
+
+    # 5. capture, replay, shrink, the scenario path and a checkpoint
+    witness_launches = witness_phase(smi)
+    hunt_phase()
+    scenario = scenario_phase(smi)
+    checkpoint_phase(smi, fuzzed.pop("paxos"))
+    del fuzzed
 
     # 6. four ranks on the one card
     shift4, north = four_ranks_phase(smi)
@@ -942,7 +1252,9 @@ def main() -> int:
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
     by_path = {k: {**{p: free[p]["kernels"][k] for p in PATHS},
-                   "sharded_north_star": north["kernels"][k]}
+                   "sharded_north_star": north["kernels"][k],
+                   "witness_capture": witness_launches[k],
+                   "scenario_path": scenario["kernels"][k]}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
@@ -957,7 +1269,10 @@ def main() -> int:
                                for (k, _), r in x.items() if k == kname),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None,
+            "wpaxos_wan3z_d6": {k: xrows["wpaxos_wan3z"][(kname, 6)][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "share_of_bound")}})
     row = crows[0]              # main-path shape, the sparser density
     kernels.append({
         "name": "transitive_closure", "route": "cuda",

@@ -10,6 +10,7 @@ so histogram planes merge by bucket-count addition.
 
 from __future__ import annotations
 
+import bisect
 import math
 from typing import Any, Dict, Optional
 
@@ -121,6 +122,44 @@ def percentile_steps(counts, p: float) -> float:
         if acc >= rank:
             return _midpoint_steps(i)
     return _midpoint_steps(N_BUCKETS - 1)
+
+
+def to_host_snapshot(counts, sum_steps: int,
+                     step_seconds: float = 1.0) -> Dict[str, Any]:
+    """A sim bucket vector in the host registry's histogram snapshot
+    schema (``registry.HIST_SCHEME``), at ``step_seconds`` simulated
+    seconds a lock-step round.  Each sim bucket's count lands in the host
+    bucket holding its geometric midpoint; min/max are bucket-bound
+    envelopes (the kernel keeps no exact extrema)."""
+    from paxi_tpu_torch.metrics.registry import HIST_BOUNDS, HIST_SCHEME
+
+    counts = np.asarray(counts).reshape(-1)
+    if counts.shape != (N_BUCKETS,):
+        raise ValueError(f"expected {N_BUCKETS} buckets, got "
+                         f"{counts.shape}")
+    n = len(HIST_BOUNDS)
+    host = [0] * (n + 1)
+    for i, c in enumerate(counts):
+        if not c:
+            continue
+        v = _midpoint_steps(i) * step_seconds
+        host[min(bisect.bisect_left(HIST_BOUNDS, v), n)] += int(c)
+    total = int(counts.sum())
+    nz = np.nonzero(counts)[0]
+    vmin = vmax = 0.0
+    if nz.size:
+        lo = 0.0 if nz[0] == 0 else float(BOUNDS_STEPS[nz[0] - 1])
+        hi = (float(BOUNDS_STEPS[nz[-1]]) if nz[-1] < N_BUCKETS - 1
+              else 2.0 * BOUNDS_STEPS[-1])
+        vmin, vmax = lo * step_seconds, hi * step_seconds
+    return {
+        "scheme": HIST_SCHEME,
+        "count": total,
+        "sum": float(sum_steps) * step_seconds,
+        "min": vmin,
+        "max": vmax,
+        "buckets": {str(i): c for i, c in enumerate(host) if c},
+    }
 
 
 def summarize(counts, sum_steps: int) -> Dict[str, Any]:

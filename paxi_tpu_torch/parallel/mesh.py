@@ -113,7 +113,7 @@ def make_sharded_run(proto: SimProtocol, cfg: SimConfig,
             carry = init_carry(proto, cfg, fuzz, g_local, key, dev)
             state0 = {k: v.clone() for k, v in carry[0].items()} \
                 if n_pad else None
-            carry, viols, counts = run_steps(body, carry, n_steps)
+            carry, viols, counts, _ = run_steps(body, carry, n_steps)
             gidx = mesh.rank * g_local + torch.arange(g_local, device=dev)
             if n_pad:
                 # neutralise pad groups before the metrics: their final
@@ -161,4 +161,5 @@ def make_sharded_pinned_run(proto: SimProtocol, cfg: SimConfig,
             "randomness — replay it with sim/runner.make_pinned_run")
     raise NotImplementedError(
         f"{proto.name}: sharded pinned replay of a per-group kernel waits "
-        "for the per-group layout (the paxos_pg slice) and record/replay")
+        "for the per-group layout (the paxos_pg slice, ROADMAP.md Queue 1 "
+        "item 12)")

@@ -45,6 +45,7 @@ from paxi_tpu_torch.ops.closure import transitive_closure
 from paxi_tpu_torch.ops.hashing import fib_key, wrap_int32
 from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.ballot_ring import argmax_i32, popcount
+from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import (diag2, dst_major, require_packable,
                                      shift_deps, shift_window)
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
@@ -982,12 +983,13 @@ def metrics(state, cfg: SimConfig):
     }
 
 
-def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+def group_invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     """1. Commit agreement on (cmd, seq, deps) over the base-aligned
     common window.  2. Stability: ring-resident commits never change or
     un-commit; the window only advances.  3. Executed is monotone under
     the slide and implies committed.  4. Replicas with equal per-key
-    counts have equal per-key hash chains.  Returns an int32 scalar."""
+    counts have equal per-key hash chains.  Returns each group's
+    violations, ``(G,)`` int32 (the pair counts halve per group)."""
     base = new["base"]                                   # (me, R, G)
     align = torch.amax(base, dim=0)[None] - base
 
@@ -999,7 +1001,7 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     same = ((a_cmd[:, None] == a_cmd[None, :])
             & (a_seq[:, None] == a_seq[None, :])
             & torch.all(a_deps[:, None] == a_deps[None, :], dim=4))
-    v_agree = _i32sum(pair & ~same) // 2
+    v_agree = group_sum(pair & ~same) // 2
 
     adv = base - old["base"]
     o_c = shift_window(old["status"] == ST_COMMIT, adv, False)
@@ -1007,20 +1009,26 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     o_seq = shift_window(old["seq"], adv, 0)
     o_deps = shift_deps(old["deps"], adv)
     n_c = new["status"] == ST_COMMIT
-    v_stable = _i32sum(o_c & (~n_c | (new["cmd"] != o_cmd)
-                              | (new["seq"] != o_seq)
-                              | torch.any(new["deps"] != o_deps, dim=3)))
-    v_stable = v_stable + _i32sum(adv < 0)
+    v_stable = group_sum(o_c & (~n_c | (new["cmd"] != o_cmd)
+                                | (new["seq"] != o_seq)
+                                | torch.any(new["deps"] != o_deps, dim=3)))
+    v_stable = v_stable + group_sum(adv < 0)
 
     o_x = shift_window(old["executed"], adv, False)
-    v_exec_mono = _i32sum(o_x & ~new["executed"])
-    v_exec_com = _i32sum(new["executed"] & ~n_c)
+    v_exec_mono = group_sum(o_x & ~new["executed"])
+    v_exec_com = group_sum(new["executed"] & ~n_c)
 
     eqc = new["kcount"][:, None] == new["kcount"][None, :]
     eqh = new["khash"][:, None] == new["khash"][None, :]
-    v_order = _i32sum(eqc & ~eqh) // 2
+    v_order = group_sum(eqc & ~eqh) // 2
 
     return v_agree + v_stable + v_exec_mono + v_exec_com + v_order
+
+
+def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+    """The whole batch's violations: ``group_invariants`` summed (an int32
+    scalar)."""
+    return torch.sum(group_invariants(old, new, cfg), dtype=torch.int32)
 
 
 PROTOCOL = SimProtocol(
@@ -1030,5 +1038,6 @@ PROTOCOL = SimProtocol(
     step=step,
     metrics=metrics,
     invariants=invariants,
+    group_invariants=group_invariants,
     batched=True,
 )

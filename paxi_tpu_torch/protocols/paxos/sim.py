@@ -24,6 +24,7 @@ from paxi_tpu_torch.sim import cell
 from paxi_tpu_torch.sim import cell_ring as br
 from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.cell_ring import NO_CMD
+from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import require_packable
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
                                       resolve_device)
@@ -209,10 +210,11 @@ def metrics(state, cfg: SimConfig):
     }
 
 
-def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+def group_invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     """Per-step safety oracle: agreement on committed commands, stability
     of commits while in the window (and execute >= base), ballot
-    monotonicity, executed prefix committed.  Returns an int32 scalar."""
+    monotonicity, executed prefix committed.  Returns each group's
+    violations, ``(G,)`` int32."""
     BIG = 2 ** 30
     S = cfg.n_slots
     base, c, cmd = new["base"], new["log_commit"], new["log_cmd"]
@@ -223,21 +225,27 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     mx = torch.amax(torch.where(vis, cmd, -BIG), dim=0)  # (S, G)
     mn = torch.amin(torch.where(vis, cmd, BIG), dim=0)
     n_c = torch.sum(vis, dim=0, dtype=torch.int32)
-    v_agree = _i32sum((n_c >= 1) & (mx != mn))
+    v_agree = group_sum((n_c >= 1) & (mx != mn))
 
     # 2. stability: old commits still in-window live in the same cell
     o_c = old["log_commit"] \
         & (cell.cell_abs(old["base"], S) >= base[:, None, :])
-    v_stable = _i32sum(o_c & (~c | (cmd != old["log_cmd"])))
-    v_stable = v_stable + _i32sum(new["execute"] < base)
+    v_stable = group_sum(o_c & (~c | (cmd != old["log_cmd"])))
+    v_stable = v_stable + group_sum(new["execute"] < base)
 
     # 3. ballot monotonicity
-    v_bal = _i32sum(new["ballot"] < old["ballot"])
+    v_bal = group_sum(new["ballot"] < old["ballot"])
 
     # 4. executed prefix committed (cells below the frontier)
-    v_exec = _i32sum((A < new["execute"][:, None, :]) & ~c)
+    v_exec = group_sum((A < new["execute"][:, None, :]) & ~c)
 
     return v_agree + v_stable + v_bal + v_exec
+
+
+def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+    """The whole batch's violations: ``group_invariants`` summed (an int32
+    scalar)."""
+    return torch.sum(group_invariants(old, new, cfg), dtype=torch.int32)
 
 
 PROTOCOL = SimProtocol(
@@ -247,5 +255,6 @@ PROTOCOL = SimProtocol(
     step=step,
     metrics=metrics,
     invariants=invariants,
+    group_invariants=group_invariants,
     batched=True,
 )

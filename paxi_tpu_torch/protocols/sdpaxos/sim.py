@@ -38,6 +38,7 @@ from paxi_tpu_torch.sim import cell_ring as br
 from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.ballot_ring import argmax_i32
 from paxi_tpu_torch.sim.cell_ring import NO_CMD
+from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import diag2, dst_major, pick_src
 from paxi_tpu_torch.sim.ring import require_packable
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
@@ -364,10 +365,10 @@ def metrics(state, cfg: SimConfig):
     }
 
 
-def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+def group_invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     """The paxos O-log oracle (agreement, stability, ballot monotonicity,
     executed prefix committed) plus monotone C-plane frontiers.  Returns
-    an int32 scalar."""
+    each group's violations, ``(G,)`` int32."""
     BIG = 2 ** 30
     S = cfg.n_slots
     base, c, cmd = new["base"], new["log_commit"], new["log_cmd"]
@@ -377,22 +378,28 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     mx = torch.amax(torch.where(vis, cmd, -BIG), dim=0)
     mn = torch.amin(torch.where(vis, cmd, BIG), dim=0)
     n_c = _i32sum(vis, 0)
-    v_agree = _i32sum((n_c >= 1) & (mx != mn))
+    v_agree = group_sum((n_c >= 1) & (mx != mn))
 
     o_c = old["log_commit"] \
         & (cell.cell_abs(old["base"], S) >= base[:, None, :])
-    v_stable = _i32sum(o_c & (~c | (cmd != old["log_cmd"])))
-    v_stable = v_stable + _i32sum(new["execute"] < base)
+    v_stable = group_sum(o_c & (~c | (cmd != old["log_cmd"])))
+    v_stable = v_stable + group_sum(new["execute"] < base)
 
-    v_bal = _i32sum(new["ballot"] < old["ballot"])
+    v_bal = group_sum(new["ballot"] < old["ballot"])
 
-    v_exec = _i32sum((A < new["execute"][:, None, :]) & ~c)
+    v_exec = group_sum((A < new["execute"][:, None, :]) & ~c)
 
-    v_cmono = _i32sum(new["c_stored"] < old["c_stored"])
-    v_cmono = v_cmono + _i32sum(new["c_next"] < old["c_next"])
-    v_cmono = v_cmono + _i32sum(new["exec_c"] < old["exec_c"])
+    v_cmono = group_sum(new["c_stored"] < old["c_stored"])
+    v_cmono = v_cmono + group_sum(new["c_next"] < old["c_next"])
+    v_cmono = v_cmono + group_sum(new["exec_c"] < old["exec_c"])
 
     return v_agree + v_stable + v_bal + v_exec + v_cmono
+
+
+def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+    """The whole batch's violations: ``group_invariants`` summed (an int32
+    scalar)."""
+    return torch.sum(group_invariants(old, new, cfg), dtype=torch.int32)
 
 
 PROTOCOL = SimProtocol(
@@ -402,5 +409,6 @@ PROTOCOL = SimProtocol(
     step=step,
     metrics=metrics,
     invariants=invariants,
+    group_invariants=group_invariants,
     batched=True,
 )

@@ -38,6 +38,7 @@ from paxi_tpu_torch import random as tr
 from paxi_tpu_torch.metrics import lathist
 from paxi_tpu_torch.sim import cell, inscan
 from paxi_tpu_torch.sim.ballot_ring import argmax_i32, popcount
+from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import dst_major, require_packable
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
                                       resolve_device)
@@ -660,11 +661,12 @@ def metrics(state, cfg: SimConfig):
     }
 
 
-def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+def group_invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     """1. Agreement per absolute (object, slot) on the common window;
     2. commit stability under the slide; 3. per-(replica, object) ballot
     monotonicity; 4. executed prefix committed; 5. single ownership: at
-    most one active owner per object and ballot.  An int32 scalar."""
+    most one active owner per object and ballot.  Each group's
+    violations, ``(G,)`` int32 (the owner pairs halve per group)."""
     BIG = 2 ** 30
     S = cfg.n_slots
     base, c, cmd = new["base"], new["log_commit"], new["log_cmd"]
@@ -674,16 +676,16 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     mx = torch.amax(torch.where(vis, cmd, -BIG), dim=0)
     mn = torch.amin(torch.where(vis, cmd, BIG), dim=0)
     n_c = _i32sum(vis, 0)
-    v_agree = _i32sum((n_c >= 1) & (mx != mn))
+    v_agree = group_sum((n_c >= 1) & (mx != mn))
 
     o_c = old["log_commit"] \
         & (cell.cell_abs(old["base"], S) >= base[:, :, None, :])
-    v_stable = _i32sum(o_c & (~c | (cmd != old["log_cmd"])))
-    v_stable = v_stable + _i32sum(new["execute"] < base)
+    v_stable = group_sum(o_c & (~c | (cmd != old["log_cmd"])))
+    v_stable = v_stable + group_sum(new["execute"] < base)
 
-    v_bal = _i32sum(new["ballot"] < old["ballot"])
+    v_bal = group_sum(new["ballot"] < old["ballot"])
 
-    v_exec = _i32sum((A < new["execute"][:, :, None, :]) & ~c)
+    v_exec = group_sum((A < new["execute"][:, :, None, :]) & ~c)
 
     # two active replicas owning the same object at the same ballot would
     # be a stolen-twice bug; different ballots are a transient
@@ -693,9 +695,15 @@ def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
     same = (own[:, None] & own[None, :]
             & (bal[:, None] == bal[None, :])
             & (r[:, None, None, None] != r[None, :, None, None]))
-    v_own = torch.div(_i32sum(same), 2, rounding_mode="floor")
+    v_own = torch.div(group_sum(same), 2, rounding_mode="floor")
 
     return v_agree + v_stable + v_bal + v_exec + v_own
+
+
+def invariants(old, new, cfg: SimConfig) -> torch.Tensor:
+    """The whole batch's violations: ``group_invariants`` summed (an int32
+    scalar)."""
+    return torch.sum(group_invariants(old, new, cfg), dtype=torch.int32)
 
 
 PROTOCOL = SimProtocol(
@@ -705,6 +713,7 @@ PROTOCOL = SimProtocol(
     step=step,
     metrics=metrics,
     invariants=invariants,
+    group_invariants=group_invariants,
     batched=True,
 )
 
@@ -717,5 +726,6 @@ PROTOCOL_THINQ1 = SimProtocol(
     step=functools.partial(step, q1_full=False),
     metrics=metrics,
     invariants=invariants,
+    group_invariants=group_invariants,
     batched=True,
 )

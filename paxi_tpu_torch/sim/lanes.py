@@ -14,9 +14,16 @@ from typing import Dict, Tuple
 import torch
 
 from paxi_tpu_torch import random as tr
-from paxi_tpu_torch.sim.mailbox import (Wheel, WheelBox,
-                                       require_scenario_free)
+from paxi_tpu_torch.scenarios.schedule import forced_crash
+from paxi_tpu_torch.sim.mailbox import Wheel, WheelBox
 from paxi_tpu_torch.sim.types import FuzzConfig, resolve_device
+
+
+def group_sum(x: torch.Tensor) -> torch.Tensor:
+    """int32 sum over every axis but the trailing group axis: ``(G,)``."""
+    if x.ndim == 1:
+        return x.to(torch.int32)
+    return torch.sum(x, dim=tuple(range(x.ndim - 1)), dtype=torch.int32)
 
 
 def empty_wheel(spec: Dict[str, Tuple[str, ...]], n: int, g: int,
@@ -46,10 +53,12 @@ def fault_state_refresh(fs, rng, t: int, fuzz: FuzzConfig, n: int):
     a random bipartition cuts the edges across it, and each replica
     comms-crashes with ``p_crash``; ``perm_crash`` is held for good.  The
     draws of a step that keeps the old schedule are not formed (their key
-    is used nowhere else)."""
-    require_scenario_free(fuzz)
+    is used nowhere else).  A scenario's churn/outage/reconfig kills OR in
+    every step, the same for every group (``scenarios/schedule.py``)."""
+    scn = fuzz.scenario
+    scn_kills = scn is not None and scn.kills_nodes()
     if not (fuzz.p_partition > 0 or fuzz.p_crash > 0
-            or fuzz.perm_crash >= 0):
+            or fuzz.perm_crash >= 0 or scn_kills):
         return fs
     new = dict(fs)
     if t % fuzz.window == 0:
@@ -64,4 +73,12 @@ def fault_state_refresh(fs, rng, t: int, fuzz: FuzzConfig, n: int):
         forced = (torch.arange(n, device=rng.device)[:, None]
                   == fuzz.perm_crash)
         new["crashed"] = new["crashed"] | forced
+    if scn_kills:
+        # the carried plane holds last step's overlay: un-stick it before
+        # OR-ing this step's, so churn revivals happen (a window-drawn
+        # crash that coincides with a scenario kill revives with it)
+        dev = rng.device
+        new["crashed"] = (
+            (new["crashed"] & ~forced_crash(scn, t - 1, n, dev)[:, None])
+            | forced_crash(scn, t, n, dev)[:, None])
     return new

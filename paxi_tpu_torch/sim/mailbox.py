@@ -17,6 +17,7 @@ and the card path is held against them.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -49,12 +50,6 @@ def unstack_box(planes: torch.Tensor,
     for i, f in enumerate(fields):
         out[f] = planes[..., i + 1, :, :, :]
     return out
-
-
-def require_scenario_free(fuzz: FuzzConfig) -> None:
-    if fuzz.scenario is not None:
-        raise NotImplementedError(
-            "scenario schedules are not ported to paxi_tpu_torch yet")
 
 
 # ---- the plain versions of the two exchange kernels ---------------------
@@ -128,13 +123,24 @@ def wheel_insert(wheel: Wheel, outbox: Mailboxes, fs, faults,
     return new_wheel
 
 
+@functools.lru_cache(maxsize=16)
+def _delay_plane(scn, n: int, device) -> torch.Tensor:
+    """A scenario's (src, dst, 1) int32 latency plane on ``device``, built
+    once (a copy to the card each step would wait for the card)."""
+    from paxi_tpu_torch.scenarios.schedule import delay_base
+    return torch.from_numpy(delay_base(scn, n)).to(device)[:, :, None]
+
+
 def draw_edge_faults(rng, outbox: Mailboxes, fuzz: FuzzConfig):
     """Draw the per-edge ``{"drop", "delay", "dup"}`` planes wheel_insert
     consumes, one triple per message type in sorted name order, from
-    ``split(rng, 3 * len(names))`` — the reference's key structure.  When
-    the schedule draws nothing the keys are not formed."""
-    require_scenario_free(fuzz)
+    ``split(rng, 3 * len(names))`` — the reference's key structure.  Under
+    a scenario with zone latencies the delay is the zone matrix's per-edge
+    latency plus a uniform 0..jitter draw, clipped to the wheel.  When the
+    schedule draws nothing the keys are not formed."""
     d = fuzz.wheel
+    scn = fuzz.scenario
+    geo = scn is not None and scn.zones is not None
     names = sorted(outbox.keys())
     draws = fuzz.p_drop > 0 or fuzz.p_dup > 0 or d > 1
     keys = tr.split(rng, 3 * len(names)) if draws else None
@@ -145,8 +151,17 @@ def draw_edge_faults(rng, outbox: Mailboxes, fuzz: FuzzConfig):
         drop = (tr.bernoulli(keys[3 * i], fuzz.p_drop, shape)
                 if fuzz.p_drop > 0
                 else torch.zeros(shape, dtype=torch.bool, device=dev))
-        delay = (tr.randint(keys[3 * i + 1], shape, 1, d + 1) if d > 1
-                 else torch.ones(shape, dtype=torch.int32, device=dev))
+        if geo:
+            base = _delay_plane(scn, shape[0], dev)
+            if scn.zones.jitter > 0:
+                base = base + tr.randint(keys[3 * i + 1], shape, 0,
+                                         scn.zones.jitter + 1)
+            delay = torch.clamp(base, 1, d).to(torch.int32) \
+                .expand(shape).contiguous()
+        elif d > 1:
+            delay = tr.randint(keys[3 * i + 1], shape, 1, d + 1)
+        else:
+            delay = torch.ones(shape, dtype=torch.int32, device=dev)
         dup = (tr.bernoulli(keys[3 * i + 2], fuzz.p_dup, shape)
                if fuzz.p_dup > 0
                else torch.zeros(shape, dtype=torch.bool, device=dev))

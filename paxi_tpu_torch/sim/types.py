@@ -11,7 +11,7 @@ reference, so a configuration means the same run in both packages.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,7 +75,7 @@ class FuzzConfig:
     window: int = 16           # steps between fault-schedule resamples
     perm_crash: int = -1       # replica that goes comms-dead for good
     perm_crash_at: int = 0     # ... from this step on
-    # WAN topology / churn scenario; the torch port runs only ``None``
+    # WAN topology / churn scenario (``paxi_tpu_torch.scenarios``)
     scenario: Any = None
 
     @property
@@ -128,3 +128,7 @@ class SimProtocol:
     metrics: Callable[[State, SimConfig], Dict[str, torch.Tensor]]
     invariants: Callable[[State, State, SimConfig], torch.Tensor]
     batched: bool = False
+    # each group's violations, ``(G,)`` int32, in one pass (the record
+    # and pinned runs locate the violating group with it)
+    group_invariants: Optional[
+        Callable[[State, State, SimConfig], torch.Tensor]] = None

@@ -1,4 +1,5 @@
-"""The port stands alone: no file of paxi_tpu_torch/, nor chip_smoke.py,
+"""The port stands alone: no file of paxi_tpu_torch/ (its scenarios/ and
+trace/ packages and sim/checkpoint.py included), nor chip_smoke.py,
 imports jax, jaxlib or the JAX package paxi_tpu (the machine with the
 card has no JAX)."""
 
@@ -11,7 +12,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "paxi_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/torch_step_profile.py",
-       "scripts/torch_ab.py"]
+       "scripts/torch_ab.py", "scripts/torch_op_count.py"]
 BANNED = ("jax", "jaxlib", "paxi_tpu")
 
 
@@ -34,6 +35,11 @@ def test_files_found():
     assert "paxi_tpu_torch/sim/runner.py" in FILES
     assert "paxi_tpu_torch/parallel/mesh.py" in FILES
     assert "paxi_tpu_torch/dryrun.py" in FILES
+    for module in ("scenarios/spec.py", "scenarios/schedule.py",
+                   "scenarios/compile.py", "trace/format.py",
+                   "trace/replay.py", "trace/capture.py", "trace/shrink.py",
+                   "sim/checkpoint.py", "metrics/registry.py"):
+        assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
 

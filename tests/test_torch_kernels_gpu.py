@@ -35,7 +35,7 @@ def card():
     return torch.device("cuda")
 
 
-def _blocks(card, d, g, seed):
+def _blocks(card, d, g, seed, spec=SPEC, r=R):
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
 
@@ -44,14 +44,14 @@ def _blocks(card, d, g, seed):
                              dtype=torch.int32)
 
     out = []
-    for fields in SPEC.values():
+    for fields in spec.values():
         F = 1 + len(fields)
-        w = ints((d, F, R, R, g), 1000)
-        w[:, 0] = ints((d, R, R, g), 2)
-        ob = ints((F, R, R, g), 1000)
-        ob[0] = ints((R, R, g), 2)
-        out.append((w, ob, ints((R, R, g), 2).bool(),
-                    ints((R, R, g), d) + 1, ints((R, R, g), 2).bool()))
+        w = ints((d, F, r, r, g), 1000)
+        w[:, 0] = ints((d, r, r, g), 2)
+        ob = ints((F, r, r, g), 1000)
+        ob[0] = ints((r, r, g), 2)
+        out.append((w, ob, ints((r, r, g), 2).bool(),
+                    ints((r, r, g), d) + 1, ints((r, r, g), 2).bool()))
     return out
 
 
@@ -77,6 +77,68 @@ def test_insert_kernel_equals_plain(card, d, size):
         want = pmb.insert_planes(*block)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# the wpaxos mailbox under the wan3z scenario: 9 replicas, 5 message
+# types, a wheel of 5 + 1 slots (the witness and scenario paths)
+WAN_R = 9
+WAN_CFG = dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
+               steal_threshold=3, locality=0.8)
+
+
+@pytest.mark.parametrize("size", GROUPS)
+def test_exchange_kernels_at_wheel_depth_six(card, size):
+    from paxi_tpu_torch.protocols.wpaxos.sim import mailbox_spec as wspec
+    spec = wspec(SimConfig(**WAN_CFG))
+    for block in _blocks(card, 6, GROUPS[size], 66, spec, WAN_R):
+        got = px.deliver_launch(block[0])
+        want = pmb.deliver_planes(block[0])
+        got_ins = px.insert_launch(*block)
+        want_ins = pmb.insert_planes(*block)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(got_ins, want_ins)
+
+
+def test_scenario_capture_on_card_equals_cpu(card):
+    """The thin-Q1 geo capture at the hunt's 16 groups: the card's record
+    run (through the kernels, one launch a type a step) equals the CPU's
+    plane for plane, and so does the trace."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch import trace
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.scenarios import NAMED
+    from paxi_tpu_torch.sim import FuzzConfig
+    from paxi_tpu_torch.sim.runner import make_recorded_run
+    proto = sim_protocol("wpaxos_thinq1")
+    cfg = SimConfig(n_replicas=9, n_zones=3, n_objects=4, n_slots=16,
+                    steal_threshold=2, locality=0.3)
+    fuzz = FuzzConfig(p_drop=0.05, scenario=NAMED["wan3z"])
+    px.reset_launches()
+    on_card = make_recorded_run(proto, cfg, fuzz)(
+        tr.PRNGKey(0), 16, 40)
+    assert px.wheel_deliver.launches == px.wheel_insert.launches == 40 * 5
+    on_cpu = make_recorded_run(proto, cfg, fuzz, device="cpu")(
+        tr.PRNGKey(0), 16, 40)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}.{k}")
+        else:
+            yield path, tree
+
+    for (k, a), (_, b) in zip(leaves(on_cpu[4]), leaves(on_card[4])):
+        assert torch.equal(a, b.cpu()), k
+    assert torch.equal(on_cpu[3], on_card[3].cpu())
+    for k in on_cpu[1]:
+        assert int(on_cpu[1][k]) == int(on_card[1][k]), k
+    a = trace.capture(proto, cfg, fuzz, 0, 16, 40, device="cpu")
+    b = trace.capture(proto, cfg, fuzz, 0, 16, 40)
+    assert a is not None and a.meta == b.meta
+    r = trace.replay(b)
+    assert r.state_hash == b.meta["capture_state_hash"]
+    assert r.counters == b.meta["capture_counters"]
 
 
 def test_wrappers_reject_bad_arguments(card):

@@ -154,10 +154,13 @@ def test_entry_points_need_a_device(monkeypatch):
 def test_unported_options_raise():
     proto, cfg = sim_protocol("paxos"), SimConfig(**CFG)
     with pytest.raises(NotImplementedError):
-        make_run(proto, cfg, FuzzConfig(scenario=object()), device="cpu")
-    with pytest.raises(NotImplementedError):
         simulate(proto, SimConfig(workload=object(), **CFG), G, 1,
                  device="cpu")
+    # scenarios are ported (tests/test_torch_scenarios.py); the sharded
+    # replay is not
+    from paxi_tpu_torch.trace import Trace, replay
+    with pytest.raises(NotImplementedError, match="item 12"):
+        replay(Trace(meta={}, sched={}), mesh=object(), device="cpu")
     with pytest.raises(KeyError):
         sim_protocol("abd")
 
