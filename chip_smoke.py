@@ -58,7 +58,22 @@ non-zero exit code and no result line:
    at 100,000 groups x 5 x 64 for 104 steps over the four ranks, which
    must commit 10,000,000 slots with 0 violations (correctness: four
    processes time-slicing one card say nothing of four cards);
-7. the kernel summary line, the ``nvidia-smi`` line, and last the result
+7. workloads (``bench_all.py --workload``'s matrix): paxos 3 x 16 x 64
+   keys and the wpaxos 3 x 3 grid (16 objects over 32 keys) under the
+   uniform, zipf99 and flash specs at 100,000 groups (paxos 120 steps,
+   wpaxos 60), each read with its own launch counts, with the per-class
+   latency split and, for wpaxos, the steals; paxos uniform and zipf99
+   must commit 11,600,000 and wpaxos zipf99 steal at least 10 more than
+   uniform; the lowering pin at full width (paxos_pg, the per-group
+   kernel, against the lane-major run: equal kv planes and class counts
+   under zipf99, both gated under flash); the time of the workload's hash
+   planes at a step's shapes; every cell and paxos_pg card against CPU at
+   64 groups x 30 steps, fault-free and fuzzed; and, inside phase 6's
+   spawn, the sharded zipf99 paxos (global group ids), a padded paxos_pg
+   run of 257 groups and a sharded pinned replay of a paxos_pg capture,
+   each against its one-device run on the card; phase 2 also times the
+   exchange kernels at the two new mailbox shapes (3 and 9 replicas);
+8. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero when CUDA
@@ -145,6 +160,21 @@ SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
 SCENARIO_STEPS = 100
 CHECKPOINT_SPLIT = 52                # of the paxos path's 104 fuzzed steps
 SCRATCH_DIR = "build/chip_smoke"     # trace and checkpoint files
+# phase 7: bench_all.py's workload matrix (_wl_cfgs) at GROUPS groups
+WL_CFGS = {"paxos": dict(n_replicas=3, n_slots=16, n_keys=64),
+           "wpaxos": dict(n_replicas=9, n_zones=3, n_slots=16, n_keys=32,
+                          n_objects=16, steal_threshold=4, locality=0.8)}
+WL_NAMES = ("uniform", "zipf99", "flash")
+# wpaxos cut from bench_all's 120 steps to 60 for time (PERF.md section
+# 4); 60 still holds flash's first surge, steps 30-41
+WL_STEPS = {"paxos": 120, "wpaxos": 60}
+# a workloadless fault-free paxos 3 x 16 group commits steps - 4 slots; a
+# spec without a flash gate changes keys, reads and classes only
+WL_EXPECT = {("paxos", "uniform"): 116 * GROUPS,
+             ("paxos", "zipf99"): 116 * GROUPS}
+WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 30   # card-against-CPU shape
+WL_SHARD_GROUPS, PG_SHARD_GROUPS = 256, 257  # 257: three pad groups
+PG_PIN = dict(group=131, steps=SMALL_STEPS)  # the sharded pinned replay
 
 
 def log(msg: str) -> None:
@@ -401,18 +431,28 @@ def closure_path_phase():
 
 # ---- phase 3: the card against the CPU ----------------------------------
 
-def compare_runs(a, b, label: str) -> None:
-    from paxi_tpu_torch.convert import state_to_numpy
-    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+def same_run(want, got, label: str) -> None:
+    """Every plane, metric and violation count of two runs' ``(state,
+    metrics, violations)`` (tensors or numpy) equal."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    (sa, ma, va), (sb, mb, vb) = want[:3], got[:3]
     for k in sa:
-        if sa[k].dtype != sb[k].dtype or not (sa[k] == sb[k]).all():
-            fail(f"{label}: state plane {k} differs between CPU and card")
-    for k in a.metrics:
-        if int(a.metrics[k]) != int(b.metrics[k]):
-            fail(f"{label}: metric {k} differs: {int(a.metrics[k])} vs "
-                 f"{int(b.metrics[k])}")
-    if int(a.violations) != int(b.violations):
+        a, b = host(sa[k]), host(sb[k])
+        if a.dtype != b.dtype or a.shape != b.shape or not (a == b).all():
+            fail(f"{label}: state plane {k} differs")
+    for k in ma:
+        if int(ma[k]) != int(mb[k]):
+            fail(f"{label}: metric {k} differs: {int(ma[k])} vs "
+                 f"{int(mb[k])}")
+    if int(va) != int(vb):
         fail(f"{label}: violations differ")
+
+
+def compare_runs(a, b, label: str) -> None:
+    """Two SimResults (the CPU's and the card's) equal, as ``same_run``."""
+    same_run((a.state, a.metrics, a.violations),
+             (b.state, b.metrics, b.violations), label)
 
 
 def card_vs_cpu_phase(path: str, proto, cfg, count: str):
@@ -976,18 +1016,257 @@ def shift_world1_phase():
     return row
 
 
+# ---- phase 7: workloads ---------------------------------------------------
+
+def wl_config(cfg_kw, workload=None):
+    """``SimConfig(**cfg_kw)`` serving the named ``workload`` (or none)."""
+    from paxi_tpu_torch.sim import SimConfig
+    from paxi_tpu_torch.workload import apply_workload, named_workload
+    cfg = SimConfig(**cfg_kw)
+    return apply_workload(cfg, named_workload(workload)) if workload \
+        else cfg
+
+
+def class_row(res) -> dict:
+    """The per-class n, p50 and p99 of a run (``workload.class_split``)."""
+    from paxi_tpu_torch.workload import class_split
+    return {c: {k: v[k] for k in ("n", "p50_rounds", "p99_rounds")}
+            for c, v in class_split(res.state).items()}
+
+
+def workload_cell(path: str, wl: str, smi: str):
+    """One cell of the matrix at GROUPS groups, fault-free, read with the
+    launch counts set to 0 just before it."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import simulate
+
+    proto, cfg = sim_protocol(path), wl_config(WL_CFGS[path], wl)
+    steps = WL_STEPS[path]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(proto, cfg, GROUPS, steps, seed=SEED, device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    done = int(res.metrics["committed_slots"])
+    row = {"cell": f"{path}_{wl}", "protocol": path, "workload": wl,
+           "groups": GROUPS, "steps": steps, "config": WL_CFGS[path],
+           "committed_slots": done, "slots_per_s": done / wall_s,
+           "wall_s": wall_s, "ms_per_step": wall_s / steps * 1e3,
+           "classes": class_row(res),
+           **{f"wl_{c}_n": int(res.metrics[f"wl_{c}_n"])
+              for c in ("hot", "warm", "cold")},
+           **({"steals": int(res.metrics["steals"])}
+              if "steals" in res.metrics else {}),
+           "invariant_violations": int(res.violations),
+           "inscan_violations": res.inscan_violations,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "kernels": launches, "device": smi}
+    log("workload_cell " + json.dumps(row))
+    if int(res.violations) != 0 or res.inscan_violations != 0:
+        fail(f"workload {path} {wl}: safety violations")
+    want = WL_EXPECT.get((path, wl))
+    if want is not None and done != want:
+        fail(f"workload {path} {wl}: committed {done}, expected {want}")
+    expect_launches(f"workload {path} {wl}", launches, steps,
+                    len(proto.mailbox_spec(cfg)))
+    return row, res
+
+
+def lowering_pin_phase(lane, smi: str):
+    """paxos_pg at full width under zipf99 and flash against the
+    lane-major cells ``lane`` ({wl: SimResult}): zipf99 must give equal kv
+    planes and class counts; flash gates both below zipf99 (their commits
+    are reported: the reference's two lowerings need not agree there)."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import simulate
+
+    proto = sim_protocol("paxos_pg")
+    steps = WL_STEPS["paxos"]
+    for wl in ("zipf99", "flash"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = simulate(proto, wl_config(WL_CFGS["paxos"], wl), GROUPS,
+                       steps, seed=SEED, device=DEVICE)
+        wall_s = time.perf_counter() - t0
+        ref = lane[wl]
+        done = int(res.metrics["committed_slots"])
+        counts = {c: (int(res.metrics[f"wl_{c}_n"]),
+                      int(ref.metrics[f"wl_{c}_n"]))
+                  for c in ("hot", "warm", "cold")}
+        kv_equal = bool(torch.equal(res.state["kv"], ref.state["kv"]))
+        row = {"workload": wl, "groups": GROUPS, "steps": steps,
+               "paxos_pg_committed": done,
+               "paxos_committed": int(ref.metrics["committed_slots"]),
+               "paxos_pg_slots_per_s": done / wall_s,
+               "paxos_slots_per_s": ref.metrics["committed_slots"].item()
+               / lane[wl + "_wall_s"],
+               "kv_equal": kv_equal, "class_counts_pg_vs_lane": counts,
+               "invariant_violations": int(res.violations),
+               "inscan_violations": res.inscan_violations,
+               "kernels": launch_counts(),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "device": smi}
+        log("lowering_pin " + json.dumps(row))
+        if int(res.violations) != 0 or res.inscan_violations != 0:
+            fail(f"paxos_pg {wl}: safety violations")
+        if any(n for n in row["kernels"].values()):
+            fail(f"paxos_pg {wl}: a hand-written kernel launched; the "
+                 "per-group exchange is tensor code")
+        if wl == "zipf99":
+            if not kv_equal or any(a != b for a, b in counts.values()):
+                fail("lowering pin: paxos and paxos_pg differ under zipf99")
+            if done != WL_EXPECT[("paxos", "zipf99")]:
+                fail(f"paxos_pg zipf99 committed {done}")
+        elif not 0 < done < int(lane["zipf99"].metrics["committed_slots"]):
+            fail(f"paxos_pg flash is not gated: {done}")
+        del res
+        torch.cuda.empty_cache()
+
+
+def plane_calls(path: str):
+    """The calls of one step's workload hash planes at GROUPS groups, by
+    name: paxos's class plane (R, S, G), its executor's key and read planes
+    (R, G) x exec_window and its demand gate (1, G); wpaxos's demand keys
+    (R, G) on R channels."""
+    from paxi_tpu_torch.sim import cell
+    from paxi_tpu_torch.workload import compile as wlc
+
+    dev = torch.device(DEVICE)
+    cfg = wl_config(WL_CFGS[path], "flash")
+    spec, K, R = cfg.workload, cfg.n_keys, cfg.n_replicas
+    gid = torch.arange(GROUPS, dtype=torch.int32, device=dev)[None, :]
+    base = torch.randint(0, 10_000, (R, GROUPS), dtype=torch.int32,
+                         device=dev)
+    if path == "wpaxos":
+        chan = wlc.CH_DEMAND + torch.arange(R, dtype=torch.int32,
+                                            device=dev)[:, None]
+        return {"demand_keys": lambda: wlc.key_plane(spec, K, gid, 37,
+                                                     chan=chan)}
+    A = cell.cell_abs(base, cfg.n_slots)
+    return {
+        "class_plane": lambda: wlc.class_plane(spec, K, gid[None], A),
+        "key_and_read_planes": lambda: [
+            (wlc.key_plane(spec, K, gid, base + e),
+             wlc.read_plane(spec, gid, base + e))
+            for e in range(cfg.exec_window)],
+        "demand_gate": lambda: wlc.demand_gate(spec, gid, 37)}
+
+
+def workload_planes_phase(smi: str):
+    """The time of a step's workload hash planes at GROUPS groups."""
+    out = {path: {k: median_ms(f, reps=10)
+                  for k, f in plane_calls(path).items()}
+           for path in WL_CFGS}
+    log("workload_planes " + json.dumps({"groups": GROUPS, "ms": out,
+                                         "device": smi}))
+
+
+def workload_small_phase():
+    """Every matrix cell and paxos_pg, fault-free and fuzzed, card against
+    CPU at WL_SMALL_GROUPS x WL_SMALL_STEPS on every plane."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, simulate
+
+    cases = [(p, wl) for p in WL_CFGS for wl in WL_NAMES] \
+        + [("paxos_pg", None), ("paxos_pg", "zipf99"), ("paxos_pg", "flash")]
+    for path, wl in cases:
+        cfg = wl_config(WL_CFGS["paxos" if path == "paxos_pg" else path], wl)
+        for label, fuzz in (("fault_free", FAULT_FREE),
+                            ("fuzz", FuzzConfig(**FUZZ_ARGS))):
+            t0 = time.perf_counter()
+            runs = [simulate(sim_protocol(path), cfg, WL_SMALL_GROUPS,
+                             WL_SMALL_STEPS, fuzz, seed=SEED, device=d)
+                    for d in ("cpu", DEVICE)]
+            compare_runs(*runs, f"{path} {wl} {label}")
+            log("card_vs_cpu " + json.dumps({
+                "protocol": path, "workload": wl, "schedule": label,
+                "groups": WL_SMALL_GROUPS, "steps": WL_SMALL_STEPS,
+                "equal": True,
+                "committed_slots": int(runs[1].metrics["committed_slots"]),
+                "violations": int(runs[1].violations),
+                "seconds": time.perf_counter() - t0}))
+
+
+def pg_pin_schedule():
+    """The traced group's schedule of a paxos_pg record run on the card
+    (PG_SHARD_GROUPS groups, fuzzed, zipf99), for phase 6's sharded pinned
+    replay, and the one-device pinned replay and run it is held to."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig
+    from paxi_tpu_torch.sim.runner import (make_pinned_run, make_recorded_run,
+                                           make_run)
+
+    proto = sim_protocol("paxos_pg")
+    cfg = wl_config(WL_CFGS["paxos"], "zipf99")
+    fuzz = FuzzConfig(**FUZZ_ARGS)
+    g = PG_PIN["group"]
+    rec = make_recorded_run(proto, cfg, fuzz, device=DEVICE)(
+        tr.PRNGKey(SEED), PG_SHARD_GROUPS, PG_PIN["steps"])
+
+    def pick(x):
+        if isinstance(x, dict):
+            return {k: pick(v) for k, v in x.items()}
+        return x[:, g].cpu().numpy()
+    sched = pick(rec[4])
+    pinned = make_pinned_run(proto, cfg, fuzz, g, device=DEVICE)(
+        tr.PRNGKey(SEED), PG_SHARD_GROUPS, sched)
+    plain = make_run(proto, cfg, fuzz, device=DEVICE)(
+        tr.PRNGKey(SEED), PG_SHARD_GROUPS, SMALL_STEPS)
+    return sched, pinned, plain
+
+
+def workload_sharded_lines(pg, card_small, pg_ref, smi: str):
+    """Phase 7's sharded checks, run inside phase 6's spawn: the zipf99
+    paxos run against its one-device run on the card (kv, class counts,
+    commits: the global group ids), the padded paxos_pg run and the
+    sharded pinned replay each against its one-device run, every plane."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import simulate
+
+    one = simulate(sim_protocol("paxos"),
+                   wl_config(WL_CFGS["paxos"], "zipf99"), WL_SHARD_GROUPS,
+                   SMALL_STEPS, seed=SEED, device=DEVICE)
+    st, m, _ = card_small["paxos_zipf99"]
+    keys = ["committed_slots"] + [f"wl_{c}_n" for c in ("hot", "warm",
+                                                        "cold")]
+    if not (st["kv"] == one.state["kv"].cpu().numpy()).all() \
+            or any(m[k] != int(one.metrics[k]) for k in keys):
+        fail("sharded zipf99 paxos differs from its one-device run")
+    sched, pinned, plain = pg_ref
+    same_run(plain, pg["run"], "sharded paxos_pg (257 groups)")
+    same_run(pinned[:3], pg["pinned"][:3], "sharded pinned replay")
+    if not (pinned[3].cpu().numpy() == pg["pinned"][3]).all():
+        fail("sharded pinned replay: per-step violations differ")
+    log("workload_sharded " + json.dumps({
+        "world": SHARD_WORLD, "ranks_share_one_card": True,
+        "zipf99_paxos": {"groups": WL_SHARD_GROUPS, "steps": SMALL_STEPS,
+                         "kv_and_class_counts_equal_one_device": True,
+                         **{k: m[k] for k in keys}},
+        "paxos_pg_pad": {"groups": PG_SHARD_GROUPS, "steps": SMALL_STEPS,
+                         "pad_groups": (-PG_SHARD_GROUPS) % SHARD_WORLD,
+                         "equal_one_device": True,
+                         "committed_slots": pg["run"][1]["committed_slots"]},
+        "pinned_replay": {"group": PG_PIN["group"], "steps": PG_PIN["steps"],
+                          "equal_make_pinned_run": True,
+                          "violations": pg["pinned"][2]},
+        "device": smi}))
+
+
 # ---- phase 6: four ranks on the one card ---------------------------------
 
 def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
-                 n_steps: int):
+                 n_steps: int, workload=None):
     """One sharded run, gathered on every rank; rank 0 returns
     ``(state, metrics, violations)`` as numpy, the others None."""
     from paxi_tpu_torch import random as tr
     from paxi_tpu_torch.parallel import gather_state, make_sharded_run
     from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import FuzzConfig, SimConfig
+    from paxi_tpu_torch.sim import FuzzConfig
 
-    run = make_sharded_run(sim_protocol(name), SimConfig(**cfg_kw),
+    run = make_sharded_run(sim_protocol(name), wl_config(cfg_kw, workload),
                            FuzzConfig(**fuzz_kw), mesh)
     state, metrics, viol = run(tr.PRNGKey(SEED), n_groups, n_steps)
     whole = gather_state(state, mesh, n_groups)
@@ -998,21 +1277,52 @@ def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
 
 
 def sharded_checks():
-    """phase 6's card-against-CPU cases: (label, protocol, config, fuzz)."""
-    return [(f"{name}_{label}", name, cfg, fz)
+    """phase 6's card-against-CPU cases: (label, protocol, config, fuzz,
+    workload); the last is phase 7's zipf99 paxos, whose ranks offset
+    their group ids."""
+    return [(f"{name}_{label}", name, cfg, fz, None)
             for name, cfg in SHARDED_CHECKS.items()
-            for label, fz in (("fault_free", {}), ("fuzz", FUZZ_ARGS))]
+            for label, fz in (("fault_free", {}), ("fuzz", FUZZ_ARGS))] \
+        + [("paxos_zipf99", "paxos", WL_CFGS["paxos"], {}, "zipf99")]
 
 
 def sharded_small_rank(mesh):
     """The card-against-CPU cases on one rank (run on either device)."""
-    return {label: sharded_case(mesh, name, cfg, fz, SMALL_GROUPS,
-                                SMALL_STEPS)
-            for label, name, cfg, fz in sharded_checks()}
+    return {label: sharded_case(mesh, name, cfg, fz,
+                                WL_SHARD_GROUPS if wl else SMALL_GROUPS,
+                                SMALL_STEPS, wl)
+            for label, name, cfg, fz, wl in sharded_checks()}
 
 
-def card_rank(mesh):
-    """Everything phase 6 does on one rank sharing the card."""
+def sharded_pg_rank(mesh, sched):
+    """Phase 7's per-group cases on one rank sharing the card: a padded
+    paxos_pg run and the sharded pinned replay of ``sched``; rank 0
+    returns them gathered as numpy."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.parallel import gather_state, make_sharded_pinned_run
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig
+
+    out = {"run": sharded_case(mesh, "paxos_pg", WL_CFGS["paxos"],
+                               FUZZ_ARGS, PG_SHARD_GROUPS, SMALL_STEPS,
+                               "zipf99")}
+    run = make_sharded_pinned_run(
+        sim_protocol("paxos_pg"), wl_config(WL_CFGS["paxos"], "zipf99"),
+        FuzzConfig(**FUZZ_ARGS), PG_PIN["group"], mesh)
+    state, metrics, total, viols = run(tr.PRNGKey(SEED), PG_SHARD_GROUPS,
+                                       sched)
+    whole = gather_state(state, mesh, PG_SHARD_GROUPS)
+    if mesh.rank:
+        return None
+    out["pinned"] = ({k: v.cpu().numpy() for k, v in whole.items()},
+                     {k: int(v) for k, v in metrics.items()}, int(total),
+                     viols.cpu().numpy())
+    return out
+
+
+def card_rank(mesh, pg_sched):
+    """Everything phase 6 does on one rank sharing the card, and phase 7's
+    sharded per-group cases (``pg_sched``: the traced group's schedule)."""
     import torch.distributed as dist
     from paxi_tpu_torch import random as tr
     from paxi_tpu_torch.dryrun import dryrun_multichip
@@ -1050,6 +1360,7 @@ def card_rank(mesh):
     torch.cuda.empty_cache()
     # the sharded runs on the card, compared with the CPU's by the parent
     out["small"] = sharded_small_rank(mesh)
+    out["pg"] = sharded_pg_rank(mesh, pg_sched)
     out["dryrun"] = dryrun_multichip(mesh, verbose=False)
     # the full-width sharded north star
     spec = PATHS["paxos"]
@@ -1071,17 +1382,18 @@ def card_rank(mesh):
     return out
 
 
-def four_ranks_phase(smi: str):
+def four_ranks_phase(smi: str, pg_sched):
     """Phase 6: four ranks on the one card, then the same sharded runs on
-    four CPU ranks for the comparison.  Returns the four-rank shift row
-    and the sharded north star's row."""
+    four CPU ranks for the comparison.  Returns the four-rank shift row,
+    the sharded north star's row, rank 0's phase 7 per-group results and
+    the sharded card runs."""
     from paxi_tpu_torch.parallel.launch import spawn
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.sim import SimConfig
 
     t0 = time.perf_counter()
-    ranks = spawn(SHARD_WORLD, card_rank, backend="gloo", device=DEVICE,
-                  timeout=900)
+    ranks = spawn(SHARD_WORLD, card_rank, pg_sched, backend="gloo",
+                  device=DEVICE, timeout=900)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     on_cpu = spawn(SHARD_WORLD, sharded_small_rank, device="cpu",
@@ -1122,7 +1434,7 @@ def four_ranks_phase(smi: str):
 
     # the sharded runs: card against CPU
     card_small = ranks[0]["small"]
-    for label, name, cfg, fz in sharded_checks():
+    for label, name, cfg, fz, wl in sharded_checks():
         (sa, ma, va), (sb, mb, vb) = on_cpu[label], card_small[label]
         for k in sa:
             if sa[k].dtype != sb[k].dtype or not (sa[k] == sb[k]).all():
@@ -1135,7 +1447,9 @@ def four_ranks_phase(smi: str):
             fail(f"sharded {label}: {vb} violations")
         log("sharded_card_vs_cpu " + json.dumps({
             "case": label, "protocol": name, "world": SHARD_WORLD,
-            "groups": SMALL_GROUPS, "steps": SMALL_STEPS, "equal": True,
+            "workload": wl,
+            "groups": WL_SHARD_GROUPS if wl else SMALL_GROUPS,
+            "steps": SMALL_STEPS, "equal": True,
             "committed_slots": mb["committed_slots"], "violations": vb}))
 
     # dryrun_multichip at world 4
@@ -1178,16 +1492,17 @@ def four_ranks_phase(smi: str):
                 or n["launches"]["wheel_insert"] != steps * n_types:
             fail(f"sharded north star: a rank's exchange launches "
                  f"{n['launches']} != {steps * n_types}")
-    return shift_row, row
+    return shift_row, row, ranks[0]["pg"], card_small
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     from paxi_tpu_torch.ops import _build
     from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig
+    from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig, simulate
 
     # 1. device and build
     name = torch.cuda.get_device_name(0)
@@ -1211,6 +1526,12 @@ def main() -> int:
     xrows["wpaxos_wan3z"] = exchange_phase(
         "wpaxos", sim_protocol("wpaxos").mailbox_spec(wan_cfg),
         depths=(geo_fuzz().wheel,), replicas=wan_cfg.n_replicas)
+    # and at phase 7's two mailbox shapes, wheel depth 1
+    for p, cfg_kw in WL_CFGS.items():
+        wcfg = SimConfig(**cfg_kw)
+        xrows[f"{p}_workload"] = exchange_phase(
+            p, sim_protocol(p).mailbox_spec(wcfg), depths=(1,),
+            replicas=wcfg.n_replicas)
     crows = closure_phase()
     prows = closure_path_phase()
     srow = shift_world1_phase()
@@ -1244,8 +1565,43 @@ def main() -> int:
     checkpoint_phase(smi, fuzzed.pop("paxos"))
     del fuzzed
 
-    # 6. four ranks on the one card
-    shift4, north = four_ranks_phase(smi)
+    # 7. workloads: the matrix, the lowering pin, the hash planes, card
+    # against CPU; the sharded cases ride phase 6's spawn
+    t7 = time.perf_counter()
+    wl_rows, lane = {}, {}
+    for p in WL_CFGS:
+        simulate(sim_protocol(p), wl_config(WL_CFGS[p], "zipf99"), GROUPS,
+                 WARMUP_STEPS, seed=SEED + 1, device=DEVICE)
+        for wl in WL_NAMES:
+            row, res = workload_cell(p, wl, smi)
+            wl_rows[p, wl] = row
+            if p == "paxos" and wl != "uniform":
+                lane[wl], lane[wl + "_wall_s"] = res, row["wall_s"]
+            del res
+            torch.cuda.empty_cache()
+    steals = {wl: wl_rows["wpaxos", wl]["steals"] for wl in WL_NAMES}
+    if steals["zipf99"] < steals["uniform"] + 10:
+        fail(f"wpaxos steals {steals}: zipf99 must steal at least 10 more "
+             "than uniform")
+    lowering_pin_phase(lane, smi)
+    del lane
+    torch.cuda.empty_cache()
+    workload_planes_phase(smi)
+    for p in WL_CFGS:
+        step_split_phase(p, sim_protocol(p), wl_config(WL_CFGS[p], "zipf99"),
+                         FAULT_FREE, "zipf99")
+    workload_small_phase()
+    pg_ref = pg_pin_schedule()
+    t7 = time.perf_counter() - t7
+
+    # 6. four ranks on the one card (with phase 7's sharded cases)
+    t6 = time.perf_counter()
+    shift4, north, pg_sharded, card_small = four_ranks_phase(smi, pg_ref[0])
+    t6 = time.perf_counter() - t6
+    workload_sharded_lines(pg_sharded, card_small, pg_ref, smi)
+    log("phase_seconds " + json.dumps({
+        "workloads_single_card": t7, "four_ranks_with_workloads": t6,
+        "script_so_far": time.perf_counter() - t_script}))
 
     # 7. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
@@ -1254,7 +1610,9 @@ def main() -> int:
     by_path = {k: {**{p: free[p]["kernels"][k] for p in PATHS},
                    "sharded_north_star": north["kernels"][k],
                    "witness_capture": witness_launches[k],
-                   "scenario_path": scenario["kernels"][k]}
+                   "scenario_path": scenario["kernels"][k],
+                   **{f"workload_{p}_{wl}": r["kernels"][k]
+                      for (p, wl), r in wl_rows.items()}}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
@@ -1270,9 +1628,12 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "wpaxos_wan3z_d6": {k: xrows["wpaxos_wan3z"][(kname, 6)][k]
-                                for k in ("ms", "plain_ms", "bound_ms",
-                                          "share_of_bound")}})
+            **{f"{p}_d{d}": {k: xrows[x][(kname, d)][k]
+                             for k in ("ms", "plain_ms", "bound_ms",
+                                       "share_of_bound")}
+               for p, x, d in (("wpaxos_wan3z", "wpaxos_wan3z", 6),
+                               ("paxos_r3", "paxos_workload", 1),
+                               ("wpaxos_grid", "wpaxos_workload", 1))}})
     row = crows[0]              # main-path shape, the sparser density
     kernels.append({
         "name": "transitive_closure", "route": "cuda",

@@ -21,8 +21,8 @@ def _via_host(t: torch.Tensor, mesh) -> bool:
 
 def all_reduce_sum(tensors: Dict[str, torch.Tensor],
                    mesh) -> Dict[str, torch.Tensor]:
-    """Sum each tensor over the ranks in its own dtype (int32 wraps, as
-    ``lax.psum`` does): one collective per dtype."""
+    """Sum each tensor (of any shape) over the ranks in its own dtype
+    (int32 wraps, as ``lax.psum`` does): one collective per dtype."""
     if mesh.group is None:
         return dict(tensors)
     out = {}
@@ -30,11 +30,13 @@ def all_reduce_sum(tensors: Dict[str, torch.Tensor],
     for k, v in tensors.items():
         by_dtype.setdefault(v.dtype, []).append(k)
     for keys in by_dtype.values():
-        flat = torch.stack([tensors[k].reshape(()) for k in keys])
+        flat = torch.cat([tensors[k].reshape(-1) for k in keys])
         buf = flat.cpu() if _via_host(flat, mesh) else flat
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-        buf = buf.to(flat.device)
-        out.update({k: buf[i] for i, k in enumerate(keys)})
+        parts = buf.to(flat.device).split(
+            [tensors[k].numel() for k in keys])
+        out.update({k: p.reshape(tensors[k].shape)
+                    for k, p in zip(keys, parts)})
     return {k: out[k] for k in tensors}
 
 

@@ -60,6 +60,23 @@ def flush_pending(state):
     return dict(state, m_lat_hist=hist, m_commit_dt=torch.zeros_like(pend))
 
 
+def hist_update_pg(hist, dt, mask):
+    """``hist_update`` for a per-group kernel, group axis leading:
+    ``hist (G, N_BUCKETS)``, ``dt``/``mask (G, ...)``; the lane-major
+    binning over views with the group axis moved last."""
+    return hist_update(hist.T, torch.movedim(dt, 0, -1),
+                       torch.movedim(mask, 0, -1)).T.contiguous()
+
+
+def flush_pending_pg(state):
+    """``flush_pending`` for a per-group kernel's state (group axis
+    leading)."""
+    pend = state["m_commit_dt"]
+    return dict(state, m_lat_hist=hist_update_pg(state["m_lat_hist"], pend,
+                                                 pend > 0),
+                m_commit_dt=torch.zeros_like(pend))
+
+
 # ---- host-side reductions (numpy; run after the step loop) ---------------
 
 def to_sparse(counts) -> Dict[str, int]:

@@ -24,40 +24,53 @@ def _tot(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dtype=torch.int32)
 
 
-def step_counts(inbox, outbox, faults, fs, n: int, wheel_valid=None
-                ) -> Dict[str, torch.Tensor]:
+def _tot_per_group(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dim=tuple(range(1, x.ndim)), dtype=torch.int32)
+
+
+def step_counts(inbox, outbox, faults, fs, n: int, wheel_valid=None,
+                per_group: bool = False) -> Dict[str, torch.Tensor]:
     """One lock-step round's counter increments.
 
     ``wheel_valid`` maps each message type to the post-delivery,
-    pre-insert wheel's validity planes ``(d, src, dst, G)``; a put onto an
+    pre-insert wheel's validity planes, slot axis first (``(d, src, dst,
+    G)`` lane-major, ``(d, G, src, dst)`` per-group); a put onto an
     occupied cell overwrites an in-flight message (``delay_collisions``).
     A one-slot wheel is rotated empty before every insert, so it can have
-    no collisions and is skipped, as in the reference."""
+    no collisions and is skipped, as in the reference.
+
+    ``per_group=True`` takes a per-group kernel's planes (group axis
+    leading, ``sim/mailbox_pg.py``) and returns each group's counts,
+    ``(G,)`` int32 apiece, as the reference's vmapped call does."""
     # function-local: sim.runner imports this module, so a top-level
     # sim.mailbox import would cycle through the sim package __init__
     from paxi_tpu_torch.sim import mailbox as mb
+    from paxi_tpu_torch.sim import mailbox_pg
 
     sample = next(iter(outbox.values()))["valid"]
-    live = mb.live_mask(fs, n)
-    zero = torch.zeros((), dtype=torch.int32, device=sample.device)
+    live = (mailbox_pg.live_mask(fs, n) if per_group
+            else mb.live_mask(fs, n))
+    tot = _tot_per_group if per_group else _tot
+    zero = torch.zeros(sample.shape[:1] if per_group else (),
+                       dtype=torch.int32, device=sample.device)
 
-    sent = sum((_tot(b["valid"]) for b in outbox.values()), zero)
-    delivered = sum((_tot(b["valid"]) for b in inbox.values()), zero)
+    sent = sum((tot(b["valid"]) for b in outbox.values()), zero)
+    delivered = sum((tot(b["valid"]) for b in inbox.values()), zero)
     dropped = duplicated = delayed = collisions = zero
     for name in sorted(outbox.keys()):
         valid = outbox[name]["valid"] & live
         f = faults[name]
-        dropped = dropped + _tot(f["drop"] & valid)
+        dropped = dropped + tot(f["drop"] & valid)
         kept = valid & ~f["drop"]
-        duplicated = duplicated + _tot(f["dup"] & kept)
-        delayed = delayed + _tot((f["delay"] > 1) & kept)
+        duplicated = duplicated + tot(f["dup"] & kept)
+        delayed = delayed + tot((f["delay"] > 1) & kept)
         if wheel_valid is not None and wheel_valid[name].shape[0] > 1:
             d = wheel_valid[name].shape[0]
             dup_delay = torch.clamp(f["delay"] + 1, max=d)
             for slot in range(d):
                 put = kept & ((f["delay"] == slot + 1)
                               | (f["dup"] & (dup_delay == slot + 1)))
-                collisions = collisions + _tot(
+                collisions = collisions + tot(
                     put & wheel_valid[name][slot])
     return {
         NET_PREFIX + "msgs_sent": sent,
@@ -66,8 +79,8 @@ def step_counts(inbox, outbox, faults, fs, n: int, wheel_valid=None
         NET_PREFIX + "msgs_duplicated": duplicated,
         NET_PREFIX + "msgs_delayed": delayed,
         NET_PREFIX + "delay_collisions": collisions,
-        NET_PREFIX + "crash_steps": _tot(fs["crashed"]),
-        NET_PREFIX + "cut_edge_steps": _tot(~fs["conn"]),
+        NET_PREFIX + "crash_steps": tot(fs["crashed"]),
+        NET_PREFIX + "cut_edge_steps": tot(~fs["conn"]),
     }
 
 

@@ -9,7 +9,11 @@ every plane — state ``(R, G)`` / ``(R, S, G)``, mailbox planes
 a masked update.  The ballot/ring consensus core lives in
 ``sim/cell_ring.py``; this module adds the client load model (the leader
 proposes one new command per step while the window has room) and
-execution.  Only the ``cfg.workload is None`` path is ported.
+execution.  Under a workload (``cfg.workload``, ``paxi_tpu_torch.workload``)
+each command's key, read flag and key class derive from (global group id,
+absolute slot) counter draws, reads execute without writing the KV, the
+flash-crowd gate throttles new proposals, and commits bin into per-class
+latency histograms.
 """
 
 from __future__ import annotations
@@ -23,17 +27,14 @@ from paxi_tpu_torch.ops.hashing import fib_key
 from paxi_tpu_torch.sim import cell
 from paxi_tpu_torch.sim import cell_ring as br
 from paxi_tpu_torch.sim import inscan
-from paxi_tpu_torch.sim.cell_ring import NO_CMD
+# NO_CMD and NOOP are also the per-group kernel's (sim_pg.py)
+from paxi_tpu_torch.sim.cell_ring import NO_CMD, NOOP  # noqa: F401
 from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import require_packable
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
                                       resolve_device)
-
-
-def _no_workload(cfg: SimConfig) -> None:
-    if cfg.workload is not None:
-        raise NotImplementedError(
-            "workload runs are not ported to paxi_tpu_torch yet")
+from paxi_tpu_torch.workload import compile as wlc
+from paxi_tpu_torch.workload.spec import CLASSES
 
 
 def mailbox_spec(cfg: SimConfig) -> Dict[str, Tuple[str, ...]]:
@@ -59,7 +60,6 @@ def cmd_key(cmd, n_keys: int):
 def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
     """The lane-major initial state on ``device`` (the card unless
     ``"cpu"`` is asked for); ``rng`` is unused (as in the reference)."""
-    _no_workload(cfg)
     del rng
     device = resolve_device(device)
     R, S, K, G = cfg.n_replicas, cfg.n_slots, cfg.n_keys, n_groups
@@ -67,7 +67,7 @@ def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)
     timer = (torch.arange(R, **i32) * cfg.election_timeout)[:, None]
-    return dict(
+    st = dict(
         ballot=torch.zeros((R, G), **i32),
         active=torch.zeros((R, G), **b),
         p1_acks=torch.zeros((R, G), **i32),
@@ -92,11 +92,20 @@ def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
         m_lat_sum=torch.zeros((G,), **i32),
         m_inscan_viol=torch.zeros((G,), **i32),
     )
+    if cfg.workload is not None:
+        # global group ids: the workload's draws key on (group, absolute
+        # slot), so a sharded rank offsets this plane by its first group.
+        # Not m_-prefixed: it feeds the command key derivation.
+        st["wl_gid"] = torch.arange(G, **i32)
+        # per-key-class commit-latency planes, binned at commit
+        for nm in CLASSES:
+            st[f"m_wl_hist_{nm}"] = lathist.empty_hist(G, device=device)
+            st[f"m_wl_sum_{nm}"] = torch.zeros((G,), **i32)
+    return st
 
 
 def step(state, inbox, ctx: StepCtx):
     cfg = ctx.cfg
-    _no_workload(cfg)
     R, S, K = cfg.n_replicas, cfg.n_slots, cfg.n_keys
     MAJ, STRIDE = cfg.majority, cfg.ballot_stride
     RETAIN = max(S // 2, 1)
@@ -129,6 +138,15 @@ def step(state, inbox, ctx: StepCtx):
     m_commit_dt = torch.where(newly, dt, state["m_commit_dt"])
     m_lat_sum = m_lat_sum + torch.sum(torch.where(newly, dt, 0),
                                       dim=(0, 1), dtype=torch.int32)
+    # per-key-class latency: the committed cell's class derives from
+    # (group, absolute slot), the draw the executor's key id uses
+    wl = cfg.workload
+    wl_planes = {}
+    if wl is not None:
+        gid = state["wl_gid"]                            # (G,) global ids
+        cls = wlc.class_plane(wl, K, gid[None, None, :],
+                              cell.cell_abs(st["base"], S))
+        wl_planes = wlc.class_hist_planes(state, cls, newly, dt)
     b0 = st["base"]
     st, ex, c_has, c_bal = br.apply_p3(st, inbox["p3"], {"kv": kv})
     kv = ex["kv"]
@@ -138,6 +156,12 @@ def step(state, inbox, ctx: StepCtx):
     is_leader = st["active"] & br.own_bal_mask(st, STRIDE)
     has_re, can_new, prop_cell, prop_slot, oh_p, re_cmd = \
         br.repropose_target(st)
+    if wl is not None:
+        # flash-crowd gate on NEW commands only: re-proposals are
+        # recovery and always proceed
+        gate = wlc.demand_gate(wl, state["wl_gid"][None, :], ctx.t)
+        if gate is not None:
+            can_new = can_new & gate
     is_new = ~has_re & can_new
     prop_cmd = torch.where(is_new, encode_cmd(st["ballot"], prop_slot),
                            re_cmd)
@@ -161,8 +185,17 @@ def step(state, inbox, ctx: StepCtx):
         running = running & com
         cmd_e = torch.sum(torch.where(oh_e, st["log_cmd"], 0), dim=1,
                           dtype=torch.int32)
-        key_e = cmd_key(cmd_e, K)
-        wr = running & (cmd_e >= 0)
+        if wl is None:
+            key_e = cmd_key(cmd_e, K)
+            wr = running & (cmd_e >= 0)
+        else:
+            # the workload's command plane: key id and read flag from
+            # (global group id, absolute slot); reads advance the
+            # frontier but never write the KV
+            gidb = state["wl_gid"][None, :]              # (1, G)
+            key_e = wlc.key_plane(wl, K, gidb, abs_e)
+            wr = (running & (cmd_e >= 0)
+                  & ~wlc.read_plane(wl, gidb, abs_e))
         ohk = wr[:, None, :] & (kidx[None, :, None] == key_e[:, None, :])
         kv = torch.where(ohk, cmd_e[:, None, :], kv)
         advanced = advanced + running.to(torch.int32)
@@ -186,7 +219,8 @@ def step(state, inbox, ctx: StepCtx):
 
     new_state = dict(st, kv=kv, m_prop_t=m_prop_t,
                      m_commit_dt=m_commit_dt, m_lat_hist=m_lat_hist,
-                     m_lat_sum=m_lat_sum, m_inscan_viol=m_inscan_viol)
+                     m_lat_sum=m_lat_sum, m_inscan_viol=m_inscan_viol,
+                     **wl_planes)
     outbox = {"p1a": out_p1a, "p1b": out_p1b, "p2a": out_p2a,
               "p2b": out_p2b, "p3": out_p3}
     return new_state, outbox
@@ -207,6 +241,10 @@ def metrics(state, cfg: SimConfig):
         "commit_lat_n": (_i32sum(state["m_lat_hist"])
                          + _i32sum(state["m_commit_dt"] > 0)),
         "inscan_violations": _i32sum(state["m_inscan_viol"]),
+        # per-key-class sample counts (workload runs; the histograms ride
+        # in state: workload.class_split)
+        **{f"wl_{nm}_n": _i32sum(state[f"m_wl_hist_{nm}"])
+           for nm in CLASSES if f"m_wl_hist_{nm}" in state},
     }
 
 

@@ -19,8 +19,12 @@ Layout, as in the reference:
   demands one object a step, home-zone-biased by ``cfg.locality``.
 - P3 carries the owner's window base (``lowslot``): a replica below it
   adopts the owner's object row (snapshot catch-up).
+- Under a workload (``cfg.workload``) each replica demands the object of a
+  spec-drawn key (``key % O``) on its own counter channel, the flash-crowd
+  gate throttles new proposals, and commits bin into per-class latency
+  histograms by their object's class.
 
-Only the ``cfg.workload is None`` path is ported.  Every reduction the
+Every reduction the
 reference takes in int32 is taken with ``dtype=torch.int32`` here, its
 one-hot ``einsum`` contractions over the object axis are gathers (exact,
 and integer matmuls do not run on the card), and no input plane is
@@ -42,16 +46,12 @@ from paxi_tpu_torch.sim.lanes import group_sum
 from paxi_tpu_torch.sim.ring import dst_major, require_packable
 from paxi_tpu_torch.sim.types import (SimConfig, SimProtocol, StepCtx,
                                       resolve_device)
+from paxi_tpu_torch.workload import compile as wlc
+from paxi_tpu_torch.workload.spec import CLASSES
 
 NO_CMD = -1
 NOOP = -2
 I32 = torch.int32
-
-
-def _no_workload(cfg: SimConfig) -> None:
-    if cfg.workload is not None:
-        raise NotImplementedError(
-            "workload runs are not ported to paxi_tpu_torch yet")
 
 
 def mailbox_spec(cfg: SimConfig) -> Dict[str, Tuple[str, ...]]:
@@ -103,7 +103,6 @@ def _sel_obj(plane, obj):
 def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
     """The lane-major initial state on ``device`` (the card unless
     ``"cpu"`` is asked for); ``rng`` is unused (as in the reference)."""
-    _no_workload(cfg)
     del rng
     device = resolve_device(device)
     R, O, S, G = cfg.n_replicas, cfg.n_objects, cfg.n_slots, n_groups
@@ -113,7 +112,7 @@ def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
     ridx = torch.arange(R, **i32)
     oidx = torch.arange(O, **i32)
     owner0 = oidx % R                      # initial round-robin ownership
-    return dict(
+    st = dict(
         # per-object ballots: round 1, owner0 (everyone agrees at init)
         ballot=(cfg.ballot_stride + owner0)[None, :, None]
         .expand(R, O, G).contiguous(),
@@ -145,6 +144,14 @@ def init_state(cfg: SimConfig, rng, n_groups: int, device=None):
         m_lat_sum=torch.zeros((G,), **i32),
         m_inscan_viol=torch.zeros((G,), **i32),
     )
+    if cfg.workload is not None:
+        # global group ids for the workload's demand draws, and the
+        # per-key-class latency planes (a commit's class is its object's)
+        st["wl_gid"] = torch.arange(G, **i32)
+        for nm in CLASSES:
+            st[f"m_wl_hist_{nm}"] = lathist.empty_hist(G, device=device)
+            st[f"m_wl_sum_{nm}"] = torch.zeros((G,), **i32)
+    return st
 
 
 def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
@@ -154,7 +161,6 @@ def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
     write zone and re-propose over chosen entries.  Never a correctness
     case."""
     cfg = ctx.cfg
-    _no_workload(cfg)
     R, O, S = cfg.n_replicas, cfg.n_objects, cfg.n_slots
     Z, STRIDE = cfg.n_zones, cfg.ballot_stride
     Q1 = Z - cfg.grid_q2 + (1 if q1_full else 0)
@@ -425,6 +431,14 @@ def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
     m_lat_hist = lathist.hist_update(state["m_lat_hist"], dt, newly)
     m_lat_sum = state["m_lat_sum"] + _i32sum(torch.where(newly, dt, 0),
                                              (0, 1, 2))
+    # per-key-class latency: demand maps key -> object by key % O, so
+    # the object's epoch-0 resident rank classes its commits
+    wl = cfg.workload
+    wl_planes = {}
+    if wl is not None:
+        cls = wlc.obj_class_plane(wl, cfg.n_keys, O, newly.device)
+        wl_planes = wlc.class_hist_planes(state, cls[None, :, None, None],
+                                          newly, dt)
 
     # ---------------- P3: commit notifications --------------------------
     # zombie fences: a higher-ballot P3 deposes the receiving owner, and
@@ -493,14 +507,24 @@ def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
 
     # ---------------- workload: demand one object per step --------------
     # locality-skewed demand: each replica mostly touches its own block of
-    # "home" objects; k_jit is the steal backoff below
+    # "home" objects; k_jit is the steal backoff below.  The split stays
+    # under a workload too, so the k_jit chain is the same with and
+    # without one.
     k_d, k_loc, k_jit = tr.split(ctx.rng, 3)
-    blk = max(O // R, 1)
-    home = torch.remainder(ridx[:, None] * blk
-                           + tr.randint(k_d, (R, G), 0, blk), O)
-    anywhere = tr.randint(tr.fold_in(k_d, 1), (R, G), 0, O)
-    local_d = tr.bernoulli(k_loc, cfg.locality, (R, G))
-    d = torch.where(local_d, home, anywhere)
+    if wl is None:
+        blk = max(O // R, 1)
+        home = torch.remainder(ridx[:, None] * blk
+                               + tr.randint(k_d, (R, G), 0, blk), O)
+        anywhere = tr.randint(tr.fold_in(k_d, 1), (R, G), 0, O)
+        local_d = tr.bernoulli(k_loc, cfg.locality, (R, G))
+        d = torch.where(local_d, home, anywhere)
+    else:
+        # each replica demands the object of a spec-drawn key on its own
+        # channel: a Zipf spec puts every zone's demand on the same hot
+        # objects
+        key_d = wlc.key_plane(wl, cfg.n_keys, state["wl_gid"][None, :],
+                              ctx.t, chan=wlc.CH_DEMAND + ridx[:, None])
+        d = torch.remainder(key_d, O)
 
     # ---------------- owner proposes for the demanded object ------------
     d_oh = oidx[None, :, None] == d[:, None, :]        # (R, O, G)
@@ -516,6 +540,12 @@ def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
     re_abs = torch.amin(torch.where(mask_re, A_d, BIG), dim=1)
     has_re = torch.any(mask_re, dim=1)
     can_new = d_next - d_base < S                      # window flow control
+    if wl is not None:
+        # flash-crowd gate on NEW proposals only (re-proposals are
+        # recovery, never gated)
+        gate = wlc.demand_gate(wl, state["wl_gid"][None, :], ctx.t)
+        if gate is not None:
+            can_new = can_new & gate
     prop_slot = torch.where(has_re, re_abs, d_next)    # absolute
     new_cmd = encode_cmd(d_bal, prop_slot)
     oh_pr = sidx[None, :, None] == torch.remainder(prop_slot, S)[:, None, :]
@@ -638,6 +668,7 @@ def step(state, inbox, ctx: StepCtx, q1_full: bool = True):
         m_lat_local_n=m_lat_local_n, m_lat_cross_sum=m_lat_cross_sum,
         m_lat_cross_n=m_lat_cross_n, m_lat_hist=m_lat_hist,
         m_lat_sum=m_lat_sum, m_inscan_viol=m_inscan_viol,
+        **wl_planes,
     )
     outbox = {"p1a": out_p1a, "p1b": out_p1b, "p2a": out_p2a,
               "p2b": out_p2b, "p3": out_p3}
@@ -658,6 +689,10 @@ def metrics(state, cfg: SimConfig):
         "commit_lat_sum": _i32sum(state["m_lat_sum"]),
         "commit_lat_n": _i32sum(state["m_lat_hist"]),
         "inscan_violations": _i32sum(state["m_inscan_viol"]),
+        # per-key-class sample counts (workload runs; the histograms ride
+        # in state: workload.class_split)
+        **{f"wl_{nm}_n": _i32sum(state[f"m_wl_hist_{nm}"])
+           for nm in CLASSES if f"m_wl_hist_{nm}" in state},
     }
 
 

@@ -18,10 +18,13 @@ from jax 0.5 on):
   ``multiplier`` trick; ``bernoulli``: ``uniform(key) < p`` in float32,
   ``uniform`` = ``(bits >> 9 | 0x3F800000)`` viewed as float32, minus 1.
 
-A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words
-(or ``(n, 2)`` for a batch of keys from ``split``).  uint32 arithmetic is
-emulated in int64 with ``& 0xFFFFFFFF`` because torch has no uint32
-shifts, adds or compares on every device.
+A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words.
+Every call also takes a batch of keys ``(..., 2)`` (the per-group
+runner's one key a group) and then equals ``jax.vmap`` of the call over
+the batch: the hash is elementwise, so the two key words broadcast over
+the counters and the outputs gain the batch's leading axes.  uint32
+arithmetic is emulated in int64 with ``& 0xFFFFFFFF`` because torch has
+no uint32 shifts, adds or compares on every device.
 """
 
 from __future__ import annotations
@@ -62,38 +65,40 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def _hash_iota(key, n: int):
-    """Both output words of the hash of the 64-bit counters 0..n-1."""
+    """Both output words of the hash of the 64-bit counters 0..n-1, each
+    ``(..., n)`` for keys ``(..., 2)``."""
     if n >= 2 ** 32:
         raise ValueError("counter range beyond 2**32 is not supported")
     lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return threefry2x32(key[..., 0, None], key[..., 1, None],
+                        torch.zeros_like(lo), lo)
 
 
 def split(key, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: ``(num, 2)`` keys."""
+    """``jax.random.split(key, num)``: ``(..., num, 2)`` keys."""
     b1, b2 = _hash_iota(key, num)
-    return torch.stack([b1, b2], dim=1)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a Python int ``data``."""
-    x = torch.tensor([0, int(data) & _M32], dtype=torch.int64,
-                     device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], x[:1], x[1:])
-    return torch.cat([b1, b2])
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & _M32)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (as int64 in ``[0, 2**32)``)."""
+    """32 random bits per element (as int64 in ``[0, 2**32)``),
+    ``(..., *shape)`` for keys ``(..., 2)``."""
     b1, b2 = _hash_iota(key, math.prod(shape))
-    return (b1 ^ b2).reshape(tuple(shape))
+    return (b1 ^ b2).reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
 def randint(key, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32)."""
     k = split(key)
-    hi, lo = random_bits(k[0], shape), random_bits(k[1], shape)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
     span = (maxval - minval) & _M32 if maxval > minval else 1
     mult = (2 ** 16) % span
     mult = (mult * mult) % span

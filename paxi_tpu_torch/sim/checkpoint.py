@@ -21,6 +21,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from paxi_tpu_torch import convert
+from paxi_tpu_torch.sim.mailbox import WheelBox
 
 _META_KEY = "__paxi_tpu_meta__"
 _SEP = "|"
@@ -102,7 +103,9 @@ def load_carry(path: str, like: Any) -> Tuple[Any, dict]:
             f"with this build (v{LAYOUT_VERSION}): kernel carry layouts "
             "changed; re-run the simulation from scratch")
     np_carry = _rebuild(convert.carry_to_numpy(like), flat, ())
-    return convert.carry_from_numpy(np_carry, like[-1].device), meta
+    per_group = not isinstance(next(iter(like[1].values())), WheelBox)
+    return (convert.carry_from_numpy(np_carry, like[-1].device, per_group),
+            meta)
 
 
 def _rebuild(like: Any, flat: Dict[str, np.ndarray], path: Path) -> Any:

@@ -1,5 +1,5 @@
 """The sim runner: a Python loop over lock-step rounds on one device
-(torch twin of the JAX package's ``sim/runner.py``, lane-major branch).
+(torch twin of the JAX package's ``sim/runner.py``).
 
 Every step, every group delivers its in-flight messages, applies the
 protocol's pure transition, refreshes its fault schedule, draws the
@@ -9,9 +9,15 @@ never syncs with the host: the per-step violations and ``net_*`` counters
 accumulate on the device as int32, and the deferred latency flush is a
 host-side ``if`` on the step index.
 
-On a CUDA device the exchange runs the hand-written kernels of
-``ops/exchange.py``; on the CPU it runs their plain versions.  The entry
-points run on the card unless the caller passes ``device="cpu"``.
+Two kernel layouts, as in the reference.  Lane-major kernels
+(``proto.batched``) carry the group axis LAST and draw the whole batch
+from one key; on a CUDA device their exchange runs the hand-written
+kernels of ``ops/exchange.py``, on the CPU their plain versions.
+Per-group kernels (``paxos_pg``) carry it FIRST, one key a group
+(``split(k_run, n_groups)``), and exchange through
+``sim/mailbox_pg.py``'s tensor code, as the reference runs them.  The
+public final state is group-leading either way.  The entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from paxi_tpu_torch.metrics.simcount import (COUNTER_NAMES, NET_PREFIX,
 from paxi_tpu_torch.ops import exchange as ops
 from paxi_tpu_torch.sim import lanes
 from paxi_tpu_torch.sim import mailbox as mb
+from paxi_tpu_torch.sim import mailbox_pg as mbpg
 from paxi_tpu_torch.sim.types import (FAULT_FREE, FuzzConfig, SimConfig,
                                       SimProtocol, StepCtx, resolve_device)
 
@@ -84,30 +91,98 @@ class SimResult:
         return {"name": name, "labels": dict(labels), **snap}
 
 
-def _require_lane_major(proto: SimProtocol) -> None:
-    if not proto.batched:
-        raise NotImplementedError(
-            f"{proto.name}: only lane-major kernels are ported")
-
-
 def init_carry(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
                n_groups: int, rng: torch.Tensor, device):
-    """``(state, wheel, fs, key)`` at step 0, on ``device``."""
-    _require_lane_major(proto)
+    """``(state, wheel, fs, key)`` at step 0, on ``device``; a per-group
+    kernel's key is the batch of its groups' keys, ``split(k_run,
+    n_groups)``, and its ``wl_gid`` plane (workload runs) holds the
+    groups' ids ``0..n_groups-1``, as the reference's runner patches it."""
     spec = proto.mailbox_spec(cfg)
     k_state, k_run = tr.split(rng.to(device))
     state = proto.init_state(cfg, k_state, n_groups, device=device)
+    if not proto.batched:
+        return (state,
+                mbpg.empty_wheel(spec, cfg.n_replicas, n_groups, fuzz,
+                                 device),
+                mbpg.fault_state_init(cfg.n_replicas, n_groups, device),
+                tr.split(k_run, n_groups))
     wheel = lanes.empty_wheel(spec, cfg.n_replicas, n_groups, fuzz, device)
     fs = lanes.fault_state_init(cfg.n_replicas, n_groups, device)
     return (state, wheel, fs, k_run)
 
 
-def _put_group(x: torch.Tensor, g: int, rec: torch.Tensor) -> torch.Tensor:
-    """A copy of the lane-major plane ``x`` with group ``g`` set to
-    ``rec`` (never a write into ``x``: it may be the carry's own)."""
+def _put_group(x: torch.Tensor, g: int, rec: torch.Tensor,
+               lead: bool = False) -> torch.Tensor:
+    """A copy of the plane ``x`` with group ``g`` set to ``rec`` (never a
+    write into ``x``: it may be the carry's own); the group axis is last,
+    or first when ``lead``."""
     out = x.clone()
-    out[..., g] = rec
+    if lead:
+        out[g] = rec
+    else:
+        out[..., g] = rec
     return out
+
+
+def _pin(fs, faults, sched_t, g: int, lead: bool):
+    """The fault state and planes with group ``g``'s replaced by the
+    recorded ``sched_t``."""
+    fs = dict(fs, conn=_put_group(fs["conn"], g, sched_t["conn"], lead),
+              crashed=_put_group(fs["crashed"], g, sched_t["crashed"], lead))
+    faults = {name: {k: _put_group(v, g, sched_t["faults"][name][k], lead)
+                     for k, v in f.items()}
+              for name, f in faults.items()}
+    return fs, faults
+
+
+def _record_faults(faults, outbox, live):
+    """Only EFFECTIVE events: a drop/dup/delay on an edge the insert masks
+    anyway (no send, self-edge, cut, crashed end) is a no-op, so
+    neutralising it keeps replay exact and the schedule sparse."""
+    out = {}
+    for name, f in faults.items():
+        sent = outbox[name]["valid"] & live
+        out[name] = {"drop": f["drop"] & sent,
+                     "delay": torch.where(sent, f["delay"], 1),
+                     "dup": f["dup"] & sent}
+    return out
+
+
+def pg_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig, carry,
+            t: int, sched_t=None, pin_on: Optional[int] = None,
+            record: bool = False):
+    """One lock-step round of a per-group kernel, every group from its own
+    key: ``(carry, (viol, counts[, sched]))`` with each group's
+    violations ``viol (G,)`` and counters ``{name: (G,)}`` unsummed (the
+    sharded runner masks pad groups out before it sums).  ``pin_on`` is
+    the local index of the group that takes ``sched_t``; ``record`` also
+    returns the effective schedule ``(G, ...)``."""
+    state, wheel, fs, rngs = carry
+    ks = tr.split(rngs, 4)                                # (G, 4, 2)
+    rngs, k_step, k_fault, k_ins = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+    inbox, wheel = mbpg.wheel_deliver(wheel)
+    new_state, outbox = proto.step(state, inbox, StepCtx(k_step, t, cfg))
+    fs = mbpg.fault_state_refresh(fs, k_fault, t, fuzz, cfg.n_replicas)
+    faults = mbpg.draw_edge_faults(k_ins, outbox, fuzz)
+    if sched_t is not None and pin_on is not None:
+        fs, faults = _pin(fs, faults, sched_t, pin_on, lead=True)
+    wheel_valid = ({n: b["valid"].transpose(0, 1) for n, b in wheel.items()}
+                   if fuzz.wheel > 1 else None)
+    counts = step_counts(inbox, outbox, faults, fs, cfg.n_replicas,
+                         wheel_valid=wheel_valid, per_group=True)
+    wheel = mbpg.wheel_insert(wheel, outbox, fs, fuzz, faults)
+    viol = proto.group_invariants(state, new_state, cfg)
+    new_carry = (new_state, wheel, fs, rngs)
+    if record:
+        live = mbpg.live_mask(fs, cfg.n_replicas)
+        sched = {"conn": fs["conn"], "crashed": fs["crashed"],
+                 "faults": _record_faults(faults, outbox, live)}
+        return new_carry, (viol, counts, sched)
+    return new_carry, (viol, counts)
+
+
+def _sum_counts(counts):
+    return {k: torch.sum(v, dtype=torch.int32) for k, v in counts.items()}
 
 
 def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
@@ -123,7 +198,18 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
       way, so a replay whose record equals the draw is the original run
       bit for bit), and the violations are that group's only, ``(1,)``.
     - ``record=True``: also return the effective-event schedule of every
-      group and each group's violations ``(G,)``."""
+      group and each group's violations ``(G,)``.
+
+    A per-group kernel runs ``pg_step`` and sums its groups' counters (and
+    violations, but for the record and pinned runs)."""
+    if not proto.batched:
+        out = pg_step(proto, cfg, fuzz, carry, t, sched_t, pin_on, record)
+        new_carry, (viol, counts, *sched) = out
+        if pin_on is not None:
+            viol = viol[pin_on:pin_on + 1]
+        elif not record:
+            viol = torch.sum(viol, dtype=torch.int32)
+        return new_carry, (viol, _sum_counts(counts), *sched)
     state, wheel, fs, rng = carry
     rng, k_step, k_fault, k_ins = tr.split(rng, 4)
     inbox, wheel = ops.wheel_deliver(wheel)
@@ -131,12 +217,7 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
     fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz, cfg.n_replicas)
     faults = mb.draw_edge_faults(k_ins, outbox, fuzz)
     if sched_t is not None:
-        g = pin_on
-        fs = dict(fs, conn=_put_group(fs["conn"], g, sched_t["conn"]),
-                  crashed=_put_group(fs["crashed"], g, sched_t["crashed"]))
-        faults = {name: {k: _put_group(v, g, sched_t["faults"][name][k])
-                         for k, v in f.items()}
-                  for name, f in faults.items()}
+        fs, faults = _pin(fs, faults, sched_t, pin_on, lead=False)
     # counted before the insert, so the pre-insert wheel exposes delay
     # collisions; a one-slot wheel cannot collide and is not read
     wheel_valid = ({n: b.planes[:, 0] != 0 for n, b in wheel.items()}
@@ -156,25 +237,17 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
         viol = proto.invariants(state, new_state, cfg)
     new_carry = (new_state, wheel, fs, rng)
     if record:
-        # only EFFECTIVE events: a drop/dup/delay on an edge the insert
-        # masks anyway (no send, self-edge, cut, crashed end) is a no-op,
-        # so neutralizing it keeps replay exact and the schedule sparse
         live = mb.live_mask(fs, cfg.n_replicas)
-        rec_faults = {}
-        for name, f in faults.items():
-            sent = outbox[name]["valid"] & live
-            rec_faults[name] = {"drop": f["drop"] & sent,
-                                "delay": torch.where(sent, f["delay"], 1),
-                                "dup": f["dup"] & sent}
         sched = {"conn": fs["conn"], "crashed": fs["crashed"],
-                 "faults": rec_faults}
+                 "faults": _record_faults(faults, outbox, live)}
         return new_carry, (viol, counts, sched)
     return new_carry, (viol, counts)
 
 
 def per_group_invariants(proto: SimProtocol, cfg: SimConfig, old, new):
-    """Each group's invariant violations, ``(G,)`` int32, in one pass over
-    the lane-major planes (the protocol's ``group_invariants``)."""
+    """Each group's invariant violations, ``(G,)`` int32, in one pass (the
+    protocol's ``group_invariants``; for a per-group kernel simply its
+    invariants per group)."""
     if proto.group_invariants is None:
         raise NotImplementedError(
             f"{proto.name}: no per-group invariants")
@@ -183,19 +256,21 @@ def per_group_invariants(proto: SimProtocol, cfg: SimConfig, old, new):
 
 def flush_measurements(proto: SimProtocol, cfg: SimConfig, carry, t: int):
     """Deferred commit-latency binning: every ``flush_every(S)`` steps the
-    pending ``m_commit_dt`` deltas are binned into ``m_lat_hist``."""
+    pending ``m_commit_dt`` deltas are binned into ``m_lat_hist`` (outside
+    the group batch, at the same steps in every runner)."""
     state = carry[0]
     if "m_commit_dt" not in state:
         return carry
     if (t + 1) % lathist.flush_every(cfg.n_slots) != 0:
         return carry
-    return (lathist.flush_pending(state),) + tuple(carry[1:])
+    flush = (lathist.flush_pending if proto.batched
+             else lathist.flush_pending_pg)
+    return (flush(state),) + tuple(carry[1:])
 
 
 def make_scan_body(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig):
     """``body(carry, t) -> (carry, (viol, counts))``: one step plus the
     deferred flush."""
-    _require_lane_major(proto)
 
     def body(carry, t: int):
         carry, ys = _group_step(proto, cfg, fuzz, carry, t)
@@ -232,12 +307,25 @@ def run_steps(body, carry, n_steps: int, t0: int = 0,
     return carry, viols, counts, steps
 
 
-def finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts):
-    """Protocol metrics plus the accumulated ``net_*`` counters; the final
-    state moves its group axis to the front (the public layout)."""
+def finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts,
+               group_mask: Optional[torch.Tensor] = None):
+    """Protocol metrics plus the accumulated ``net_*`` counters; a
+    lane-major final state moves its group axis to the front (the public
+    layout).  A per-group kernel's metrics are per group and summed here;
+    ``group_mask`` (per-group kernels only) leaves groups out of the sums
+    (the sharded runner's pad groups)."""
     state = carry[0]
-    metrics = {**proto.metrics(state, cfg), **counts}
-    state = {k: torch.movedim(v, -1, 0) for k, v in state.items()}
+    if proto.batched:
+        assert group_mask is None, "lane-major metrics aggregate in-kernel"
+        metrics = {**proto.metrics(state, cfg), **counts}
+        state = {k: torch.movedim(v, -1, 0) for k, v in state.items()}
+        return state, metrics, viols
+    per_group = proto.metrics(state, cfg)
+    if group_mask is not None:
+        per_group = {k: torch.where(group_mask, v, 0)
+                     for k, v in per_group.items()}
+    metrics = {**{k: torch.sum(v, dtype=torch.int32)
+                  for k, v in per_group.items()}, **counts}
     return state, metrics, viols
 
 
@@ -289,8 +377,8 @@ def make_recorded_run(proto: SimProtocol, cfg: SimConfig,
     message type ``drop``/``delay``/``dup (T, R, R, G)``), kept on the run's
     device (2,520 bytes a group-step for 9 replicas and 5 message types).
     The PRNG chain is make_run's, so the record is what a plain run
-    draws."""
-    _require_lane_major(proto)
+    draws.  A per-group kernel records its group axis after time:
+    ``conn (T, G, R, R)`` and so on, as the reference's vmapped record."""
     dev = resolve_device(device)
 
     def run(rng: torch.Tensor, n_groups: int, n_steps: int):
@@ -340,7 +428,6 @@ def make_pinned_run(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
     geometry they reproduce the captured run).  The violations are the
     traced group's, ``viol_steps`` ``(T,)``; the schedule's length sets
     the number of steps."""
-    _require_lane_major(proto)
     dev = resolve_device(device)
 
     def run(rng: torch.Tensor, n_groups: int, sched):
@@ -391,8 +478,12 @@ def simulate(proto: SimProtocol, cfg: SimConfig, n_groups: int,
 
 def _leaves(carry):
     state, wheel, fs, key = carry
-    return ([state[k] for k in sorted(state)]
-            + [wheel[k].planes for k in sorted(wheel)]
+    planes = []
+    for k in sorted(wheel):
+        box = wheel[k]
+        planes += ([box.planes] if isinstance(box, mb.WheelBox)
+                   else [box[f] for f in sorted(box)])
+    return ([state[k] for k in sorted(state)] + planes
             + [fs[k] for k in sorted(fs)] + [key])
 
 
@@ -419,6 +510,6 @@ def continue_run(proto: SimProtocol, cfg: SimConfig, carry, t0: int,
             if s is not d:
                 d.copy_(s)
     _sync(viols)
-    n_groups = int(carry[-2]["crashed"].shape[-1])
+    n_groups = int(next(iter(state.values())).shape[0])
     return SimResult(state=state, metrics=metrics, violations=viols,
                      steps=n_steps, groups=n_groups), carry

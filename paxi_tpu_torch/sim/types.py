@@ -47,7 +47,7 @@ class SimConfig:
     sw_down_start: int = -1
     sw_down_period: int = 0
     sw_down_for: int = 0
-    # traffic workload spec; the torch port runs only ``None`` so far
+    # traffic workload spec (``paxi_tpu_torch.workload.Workload``) or None
     workload: Any = None
 
     @property
@@ -117,9 +117,12 @@ class StepCtx(NamedTuple):
 
 @dataclass(frozen=True)
 class SimProtocol:
-    """A protocol plugin for the torch sim runtime.  Only the lane-major
-    layout (``batched=True``: group axis LAST on every plane) is
-    ported."""
+    """A protocol plugin for the torch sim runtime.  Lane-major kernels
+    (``batched=True``) carry the group axis LAST on every plane and their
+    ``metrics`` sum over it; per-group kernels (``batched=False``, the
+    reference's vmapped layout written out) carry it FIRST, take one PRNG
+    key a group (``ctx.rng`` is ``(G, 2)``) and return each group's
+    metrics ``(G,)``, which the runner sums."""
 
     name: str
     mailbox_spec: Callable[[SimConfig], Dict[str, Tuple[str, ...]]]

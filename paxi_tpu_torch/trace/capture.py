@@ -23,11 +23,13 @@ from paxi_tpu_torch.trace import replay as _replay
 from paxi_tpu_torch.trace.format import Trace, make_meta, schedule_hash
 
 
-def _slice_group(sched, g: int):
-    """Group ``g``'s schedule (numpy) out of the lane-major record."""
+def _slice_group(sched, g: int, batched: bool):
+    """Group ``g``'s schedule (numpy) out of the record: lane-major
+    kernels record the group axis last (``(T, R, R, G)``), per-group
+    kernels right after time (``(T, G, R, R)``)."""
     if isinstance(sched, dict):
-        return {k: _slice_group(v, g) for k, v in sched.items()}
-    return sched[..., g].cpu().numpy()
+        return {k: _slice_group(v, g, batched) for k, v in sched.items()}
+    return (sched[..., g] if batched else sched[:, g]).cpu().numpy()
 
 
 def choose_group(viols: np.ndarray) -> int:
@@ -60,7 +62,7 @@ def capture(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
             return None
         group = choose_group(viols)
     g = int(group)
-    gsched = _slice_group(sched, g)
+    gsched = _slice_group(sched, g, proto.batched)
     del sched
     gstate = _replay.group_state(state, g)
     gviols = viols[:, g]

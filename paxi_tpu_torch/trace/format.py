@@ -69,7 +69,7 @@ class Trace:
         return int(np.asarray(self.sched["crashed"]).shape[0])
 
     def sim_config(self) -> SimConfig:
-        return SimConfig(**self.meta["sim_cfg"])
+        return sim_config_from_meta(self.meta["sim_cfg"])
 
     def fuzz_config(self) -> FuzzConfig:
         return fuzz_from_meta(self.meta["fuzz"])
@@ -94,6 +94,19 @@ class Trace:
             # an inherited stamp describes the old schedule: refresh it
             meta["schedule_hash"] = schedule_hash(t)
         return t
+
+
+def sim_config_from_meta(d: Dict[str, Any]) -> SimConfig:
+    """Rebuild a SimConfig from trace meta (``dataclasses.asdict`` after a
+    JSON round trip): a workload comes back as a hashable ``Workload``,
+    not the dict ``asdict`` made of it."""
+    d = dict(d)
+    wl = d.pop("workload", None)
+    cfg = SimConfig(**d)
+    if wl is not None:
+        from paxi_tpu_torch.workload.spec import Workload
+        cfg = cfg.with_(workload=Workload.from_dict(wl))
+    return cfg
 
 
 def fuzz_from_meta(d: Dict[str, Any]) -> FuzzConfig:

@@ -91,18 +91,30 @@ def replay(trace: Trace, proto: Optional[SimProtocol] = None, sched=None,
            mesh=None, device=None) -> ReplayResult:
     """Replay ``trace`` (or an edited ``sched`` against the trace's
     provenance) on ``device`` (the card unless ``"cpu"`` is asked for) and
-    report the traced group's violations."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded replay (make_sharded_pinned_run) is not ported yet: "
-            "ROADMAP.md Queue 1 item 12")
+    report the traced group's violations.
+
+    ``mesh`` (a ``parallel.Mesh``; every rank calls) shards the replay
+    batch over its ranks (``parallel.make_sharded_pinned_run``, per-group
+    kernels only): it reproduces the single-device replay's state hash and
+    counters, and each rank returns the whole result."""
     from paxi_tpu_torch.metrics import lathist
     proto = proto or resolve_protocol(trace.protocol)
     sched = trace.sched if sched is None else sched
-    run = make_pinned_run(proto, trace.sim_config(), trace.fuzz_config(),
-                          trace.group, device=device)
-    state, metrics, total, viols = run(tr.PRNGKey(trace.seed),
-                                       trace.n_groups, sched)
+    if mesh is not None:
+        from paxi_tpu_torch.parallel.mesh import (gather_state,
+                                                  make_sharded_pinned_run)
+        run = make_sharded_pinned_run(proto, trace.sim_config(),
+                                      trace.fuzz_config(), trace.group,
+                                      mesh=mesh)
+        state, metrics, total, viols = run(tr.PRNGKey(trace.seed),
+                                           trace.n_groups, sched)
+        state = gather_state(state, mesh, trace.n_groups)
+    else:
+        run = make_pinned_run(proto, trace.sim_config(),
+                              trace.fuzz_config(), trace.group,
+                              device=device)
+        state, metrics, total, viols = run(tr.PRNGKey(trace.seed),
+                                           trace.n_groups, sched)
     gstate = group_state(state, trace.group)
     ghist = lathist.total_hist(gstate)
     return ReplayResult(

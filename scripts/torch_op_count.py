@@ -3,16 +3,20 @@
 dispatches (each one a kernel launch on the card), on the CPU.
 
     python3 scripts/torch_op_count.py [--protocol wpaxos_thinq1]
-        [--groups 16] [--warm 5]
+        [--groups 16] [--warm 5] [--workload zipf99] [--config workload]
 
 Runs ``--warm`` rounds of the hunt's ``wpaxos_thinq1`` case (9 replicas
-in 3 zones, 4 objects, 16 slots) or of another lane-major protocol at that
-configuration, then counts the aten operators of the next round, under
-the GEO3Z schedule (p_drop 0.05 inside the wan3z zone-latency matrix) and
-fault-free, and prints one JSON line.  The count is the same at any
-group count.  On the card the exchange launches its two kernels where the
-CPU runs their plain versions' operators (a few dozen a message type), so
-the card dispatches slightly fewer a step.
+in 3 zones, 4 objects, 16 slots) or of another protocol at that
+configuration (``paxos_pg``, the per-group kernel, too), then counts the
+aten operators of the next round, under the GEO3Z schedule (p_drop 0.05
+inside the wan3z zone-latency matrix) and fault-free, and prints one JSON
+line.  ``--workload NAME`` runs the named workload on ``bench_all.py``'s
+workload configuration of the protocol instead (paxos and paxos_pg: 3
+replicas, 16 slots, 64 keys; wpaxos: the 3 x 3 grid, 16 objects over 32
+keys); ``--config workload`` takes that configuration without one.  The count is the same at any group count.  On the card the
+lane-major exchange launches its two kernels where the CPU runs their
+plain versions' operators (a few dozen a message type), so the card
+dispatches slightly fewer a step.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 WITNESS_CFG = dict(n_replicas=9, n_zones=3, n_objects=4, n_slots=16,
                    steal_threshold=2, locality=0.3)
+# bench_all.py's workload matrix configurations (_wl_cfgs)
+WORKLOAD_CFGS = {"paxos": dict(n_replicas=3, n_slots=16, n_keys=64),
+                 "wpaxos": dict(n_replicas=9, n_zones=3, n_slots=16,
+                                n_keys=32, n_objects=16, steal_threshold=4,
+                                locality=0.8)}
 
 
 class OpCount(TorchDispatchMode):
@@ -62,17 +71,31 @@ def main() -> int:
     ap.add_argument("--protocol", default="wpaxos_thinq1")
     ap.add_argument("--groups", type=int, default=16)
     ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--workload", default=None,
+                    help="a named workload (uniform, zipf99, flash, ...)")
+    ap.add_argument("--config", choices=("witness", "workload"),
+                    default=None, help="the geometry (default: workload "
+                    "with --workload, else witness)")
     args = ap.parse_args()
 
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.scenarios import NAMED
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig
+    from paxi_tpu_torch.workload import apply_workload, named_workload
 
-    proto, cfg = sim_protocol(args.protocol), SimConfig(**WITNESS_CFG)
+    cfg_kw = WITNESS_CFG
+    if (args.config or ("workload" if args.workload else "witness")) \
+            == "workload":
+        family = "wpaxos" if args.protocol.startswith("wpaxos") else "paxos"
+        cfg_kw = WORKLOAD_CFGS[family]
+    proto, cfg = sim_protocol(args.protocol), SimConfig(**cfg_kw)
+    if args.workload:
+        cfg = apply_workload(cfg, named_workload(args.workload))
     geo = FuzzConfig(p_drop=0.05, scenario=NAMED["wan3z"])
     print(json.dumps({
         "protocol": args.protocol, "groups": args.groups,
-        "config": WITNESS_CFG, "device": "cpu (a count, not a time)",
+        "config": cfg_kw, "workload": args.workload,
+        "device": "cpu (a count, not a time)",
         "ops_a_step": {
             "geo3z": ops_a_step(proto, cfg, geo, args.groups, args.warm),
             "fault_free": ops_a_step(proto, cfg, FAULT_FREE, args.groups,

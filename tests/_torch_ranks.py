@@ -10,15 +10,25 @@ import torch
 from paxi_tpu_torch import random as tr
 from paxi_tpu_torch.dryrun import dryrun_multichip
 from paxi_tpu_torch.ops.exchange import make_remote_lane_shift
-from paxi_tpu_torch.parallel import gather_state, make_sharded_run
+from paxi_tpu_torch.parallel import (gather_state, make_sharded_pinned_run,
+                                     make_sharded_run)
 from paxi_tpu_torch.protocols import sim_protocol
 from paxi_tpu_torch.sim import FuzzConfig, SimConfig
+from paxi_tpu_torch.workload import apply_workload, named_workload
 
 
-def sharded_case(mesh, name, cfg_kw, fuzz_kw, n_groups, n_steps, seed):
+def sim_config(cfg_kw, workload=None):
+    """The port's SimConfig of ``cfg_kw`` under the named ``workload``."""
+    cfg = SimConfig(**cfg_kw)
+    return apply_workload(cfg, named_workload(workload)) if workload \
+        else cfg
+
+
+def sharded_case(mesh, name, cfg_kw, fuzz_kw, n_groups, n_steps, seed,
+                 workload=None):
     """One sharded run, gathered: ``(state, metrics, violations)`` as
     numpy."""
-    run = make_sharded_run(sim_protocol(name), SimConfig(**cfg_kw),
+    run = make_sharded_run(sim_protocol(name), sim_config(cfg_kw, workload),
                            FuzzConfig(**fuzz_kw), mesh)
     state, metrics, viol = run(tr.PRNGKey(seed), n_groups, n_steps)
     whole = gather_state(state, mesh, n_groups)
@@ -46,12 +56,38 @@ def state_planes(rank: int):
             rng.integers(-2 ** 31, 2 ** 31, size=(4, 5), dtype=np.int32)]
 
 
-def all_cases(mesh, cases, shift_shapes):
-    """Every sharded case, the dry run, the shift's plain version on every
-    shape, and ``shift.many`` over a state's planes: the whole test file's
-    rank work in one spawn."""
+def pinned_case(mesh, name, cfg_kw, fuzz_kw, n_groups, seed, group, sched,
+                workload=None):
+    """One sharded pinned replay of ``sched`` as group ``group``, gathered:
+    ``(state, metrics, violations, viol_steps)`` as numpy."""
+    run = make_sharded_pinned_run(sim_protocol(name),
+                                  sim_config(cfg_kw, workload),
+                                  FuzzConfig(**fuzz_kw), group, mesh)
+    state, metrics, total, viols = run(tr.PRNGKey(seed), n_groups, sched)
+    whole = gather_state(state, mesh, n_groups)
+    return ({k: v.cpu().numpy() for k, v in whole.items()},
+            {k: v.cpu().numpy() for k, v in metrics.items()},
+            total.cpu().numpy(), viols.cpu().numpy())
+
+
+def replay_case(mesh, path):
+    """``trace.replay(load(path), mesh=mesh)``: (hash, violations,
+    viol_steps, metrics, lat_hist)."""
+    from paxi_tpu_torch import trace
+    r = trace.replay(trace.load(path), mesh=mesh)
+    return (r.state_hash, r.violations, r.viol_steps, r.metrics, r.lat_hist)
+
+
+def all_cases(mesh, cases, shift_shapes, pinned=None, replays=()):
+    """Every sharded case, the sharded pinned replays and trace replays,
+    the dry run, the shift's plain version on every shape, and
+    ``shift.many`` over a state's planes: the whole test file's rank work
+    in one spawn."""
     out = {"cases": {label: sharded_case(mesh, *case)
                      for label, case in cases.items()},
+           "pinned": {label: pinned_case(mesh, *case)
+                      for label, case in (pinned or {}).items()},
+           "replays": [replay_case(mesh, p) for p in replays],
            "dryrun": dryrun_multichip(mesh, verbose=False),
            "shift": {}}
     shift = make_remote_lane_shift(mesh)

@@ -38,7 +38,10 @@ def test_files_found():
     for module in ("scenarios/spec.py", "scenarios/schedule.py",
                    "scenarios/compile.py", "trace/format.py",
                    "trace/replay.py", "trace/capture.py", "trace/shrink.py",
-                   "sim/checkpoint.py", "metrics/registry.py"):
+                   "sim/checkpoint.py", "metrics/registry.py",
+                   "workload/spec.py", "workload/compile.py",
+                   "workload/__init__.py", "sim/mailbox_pg.py",
+                   "protocols/paxos/sim_pg.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
@@ -61,6 +64,7 @@ def test_registry_modules_are_in_the_port():
     from paxi_tpu_torch.protocols import _SIM_MODULES, sim_protocol
     assert all(m.startswith("paxi_tpu_torch.")
                for m in _SIM_MODULES.values())
-    assert {"sdpaxos", "wpaxos", "wpaxos_thinq1"} <= set(_SIM_MODULES)
+    assert {"sdpaxos", "wpaxos", "wpaxos_thinq1", "paxos_pg"} \
+        <= set(_SIM_MODULES)
     for name in _SIM_MODULES:
         assert sim_protocol(name).name == name

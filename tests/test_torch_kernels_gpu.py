@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the two
 exchange kernels, the transitive closure and the ring shift (at world 1
 and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
-paths on the card against the same runs on the CPU, and a sharded run of
-four ranks on the card against the same ranks on the CPU.
+paths on the card against the same runs on the CPU, workload runs and the
+per-group paxos_pg kernel on the card against the CPU, and sharded runs
+of four ranks on the card (paxos, and a padded paxos_pg under a workload)
+against the same ranks on the CPU.
 
 Run on a machine with a CUDA card:
 
@@ -401,6 +403,78 @@ def test_sharded_run_on_card_equals_cpu(card):
     from paxi_tpu_torch.parallel.launch import spawn
     case = ("paxos", dict(n_replicas=5, n_slots=16),
             dict(p_drop=0.1, max_delay=3), 10, 30, 3)
+    on_cpu = spawn(4, _torch_ranks.sharded_case, *case, device="cpu")
+    on_card = spawn(4, _torch_ranks.sharded_case, *case, backend="gloo",
+                    device="cuda", timeout=600)
+    for a, b in zip(on_cpu, on_card):
+        for k in a[0]:
+            assert a[0][k].dtype == b[0][k].dtype, k
+            assert (a[0][k] == b[0][k]).all(), k
+        assert {k: int(v) for k, v in a[1].items()} \
+            == {k: int(v) for k, v in b[1].items()}
+        assert int(a[2]) == int(b[2]) == 0
+
+
+# ---- workloads and the per-group layout ------------------------------------
+
+def _card_vs_cpu(name, cfg, fuzz, groups=64, steps=40, seed=2):
+    from paxi_tpu_torch.convert import state_to_numpy
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import simulate
+    a = simulate(sim_protocol(name), cfg, groups, steps, fuzz, seed=seed,
+                 device="cpu")
+    px.reset_launches()
+    b = simulate(sim_protocol(name), cfg, groups, steps, fuzz, seed=seed)
+    launches = (px.wheel_deliver.launches, px.wheel_insert.launches)
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
+    for k in a.metrics:
+        assert int(a.metrics[k]) == int(b.metrics[k]), k
+    assert int(a.violations) == int(b.violations) == 0
+    return launches
+
+
+@pytest.mark.parametrize("workload", ["uniform", "zipf99", "flash",
+                                      "migrate"])
+@pytest.mark.parametrize("name, cfg", [
+    ("paxos", dict(n_replicas=3, n_slots=16, n_keys=64)),
+    ("wpaxos", dict(n_replicas=9, n_zones=3, n_slots=16, n_keys=32,
+                    n_objects=16, steal_threshold=4, locality=0.8))])
+def test_workload_run_card_equals_cpu(card, name, cfg, workload):
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig
+    from paxi_tpu_torch.workload import apply_workload, named_workload
+    wcfg = apply_workload(SimConfig(**cfg), named_workload(workload))
+    n_types = len(sim_protocol(name).mailbox_spec(wcfg))
+    for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3)):
+        assert _card_vs_cpu(name, wcfg, fuzz, steps=48) \
+            == (48 * n_types, 48 * n_types)
+
+
+@pytest.mark.parametrize("workload", [None, "zipf99", "flash"])
+def test_paxos_pg_card_equals_cpu(card, workload):
+    """The per-group kernel on the card: the same planes as on the CPU,
+    and no hand-written kernel launched (its exchange is tensor code, as
+    the reference's per-group exchange is jnp)."""
+    from paxi_tpu_torch.scenarios import NAMED
+    from paxi_tpu_torch.sim import FuzzConfig
+    from paxi_tpu_torch.workload import apply_workload, named_workload
+    cfg = SimConfig(n_replicas=3, n_slots=16, n_keys=64)
+    if workload:
+        cfg = apply_workload(cfg, named_workload(workload))
+    for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3,
+                                          p_partition=0.2, p_crash=0.1,
+                                          window=8),
+                 FuzzConfig(p_drop=0.05, scenario=NAMED["wan3z"])):
+        assert _card_vs_cpu("paxos_pg", cfg, fuzz, groups=257) == (0, 0)
+
+
+def test_sharded_paxos_pg_on_card_equals_cpu(card):
+    import _torch_ranks
+    from paxi_tpu_torch.parallel.launch import spawn
+    case = ("paxos_pg", dict(n_replicas=3, n_slots=16, n_keys=64),
+            dict(p_drop=0.1, max_delay=3), 10, 30, 3, "zipf99")
     on_cpu = spawn(4, _torch_ranks.sharded_case, *case, device="cpu")
     on_card = spawn(4, _torch_ranks.sharded_case, *case, backend="gloo",
                     device="cuda", timeout=600)

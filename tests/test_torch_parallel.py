@@ -3,8 +3,13 @@
 ``paxi_tpu.parallel.make_sharded_run`` over four virtual JAX devices on the
 same seed, bit for bit — every gathered state plane, every summed metric
 including the net_* counters, and the violations — for paxos fault-free,
-fuzzed and padded (10 groups over 4 ranks), epaxos fuzzed, and the dry
-run's wpaxos and sdpaxos cases; world 1 against a one-device mesh; the
+fuzzed and padded (10 groups over 4 ranks), paxos under zipf99 (each
+rank's global group ids), paxos_pg fuzzed under zipf99 and padded (10
+groups, pads masked out), epaxos fuzzed, and the dry run's wpaxos and
+sdpaxos cases; the per-group runs also against one device; a sharded
+pinned replay of a recorded paxos_pg schedule against ``make_pinned_run``
+and ``trace.replay(mesh=...)`` against ``trace.replay``; world 1 against a
+one-device mesh; the
 port's ``dryrun_multichip`` against the JAX runs it mirrors; the ring
 shift's plain version against the reference's stand-in, a roll of the
 gathered axis, and ``shift.many`` over a state's planes; and the shift's
@@ -23,6 +28,7 @@ from paxi_tpu.parallel import make_sharded_run as jax_sharded  # noqa: E402
 from paxi_tpu.protocols import sim_protocol as jax_protocol  # noqa: E402
 from paxi_tpu.sim import FuzzConfig as JFuzz  # noqa: E402
 from paxi_tpu.sim import SimConfig as JCfg  # noqa: E402
+from paxi_tpu.workload import named_workload as jax_workload  # noqa: E402
 
 import _torch_ranks  # noqa: E402
 from _torch_parity import assert_tree_equal  # noqa: E402
@@ -35,10 +41,10 @@ from paxi_tpu_torch.parallel import (gather_state, make_mesh,  # noqa: E402
                                      make_sharded_run)
 from paxi_tpu_torch.parallel.launch import spawn  # noqa: E402
 from paxi_tpu_torch.protocols import sim_protocol  # noqa: E402
-from paxi_tpu_torch.sim import FuzzConfig, SimConfig  # noqa: E402
-from paxi_tpu_torch.sim.types import SimProtocol  # noqa: E402
+from paxi_tpu_torch.sim import FuzzConfig, SimConfig, runner  # noqa: E402
 
 WORLD = 4
+WL_PAXOS = dict(n_replicas=3, n_slots=16, n_keys=64)
 DRY_FUZZ = dict(p_drop=0.15, max_delay=2)
 DRY = {name: cfg.__dict__ for name, cfg in dryrun.CASES}
 # label: (protocol, config, fuzz, groups, steps, seed)
@@ -52,7 +58,15 @@ CASES = {
                     dict(p_drop=0.1, max_delay=3), 8, 20, 3),
     "wpaxos_dryrun": ("wpaxos", DRY["wpaxos"], DRY_FUZZ, 8, 40, 0),
     "sdpaxos_dryrun": ("sdpaxos", DRY["sdpaxos"], DRY_FUZZ, 8, 40, 0),
+    "paxos_zipf99": ("paxos", WL_PAXOS, {}, 8, 40, 3, "zipf99"),
+    "paxos_pg_pad": ("paxos_pg", WL_PAXOS, dict(p_drop=0.1, max_delay=3),
+                     10, 40, 3, "zipf99"),
 }
+PER_GROUP = ("paxos_pg_pad",)
+# a recorded paxos_pg schedule replayed as group PIN of 10 over the ranks
+PIN = dict(name="paxos_pg", cfg_kw=WL_PAXOS, fuzz_kw=dict(
+    p_drop=0.15, max_delay=3, p_partition=0.2, window=8), n_groups=10,
+    seed=5, group=6, steps=30, workload="flash")
 DRYRUN_CASES = {"paxos": "paxos_fuzz", "wpaxos": "wpaxos_dryrun",
                 "sdpaxos": "sdpaxos_dryrun"}
 # per-rank shift inputs: group-major (g_local, R, S) and lane-major
@@ -60,18 +74,52 @@ DRYRUN_CASES = {"paxos": "paxos_fuzz", "wpaxos": "wpaxos_dryrun",
 SHIFT_SHAPES = ((3, 5, 16), (5, 16, 3))
 
 
-def _jax_run(name, cfg_kw, fuzz_kw, n_groups, n_steps, seed, n_dev=WORLD):
+def _jax_run(name, cfg_kw, fuzz_kw, n_groups, n_steps, seed, workload=None,
+             n_dev=WORLD):
+    cfg = JCfg(**cfg_kw)
+    if workload:
+        cfg = cfg.with_(workload=jax_workload(workload))
     state, metrics, viol = jax_sharded(
-        jax_protocol(name), JCfg(**cfg_kw), JFuzz(**fuzz_kw),
+        jax_protocol(name), cfg, JFuzz(**fuzz_kw),
         mesh=jax_make_mesh(n_dev))(jr.PRNGKey(seed), n_groups, n_steps)
     return jax.device_get((state, metrics, viol))
 
 
+def _pin_record():
+    """The one-device record run of PIN and its traced group's schedule."""
+    cfg = _torch_ranks.sim_config(PIN["cfg_kw"], PIN["workload"])
+    rec = runner.make_recorded_run(
+        sim_protocol(PIN["name"]), cfg, FuzzConfig(**PIN["fuzz_kw"]),
+        device="cpu")(tr.PRNGKey(PIN["seed"]), PIN["n_groups"], PIN["steps"])
+
+    def group(x):
+        if isinstance(x, dict):
+            return {k: group(v) for k, v in x.items()}
+        return x[:, PIN["group"]].numpy()
+    return rec, group(rec[4])
+
+
 @pytest.fixture(scope="module")
-def ranks():
+def pin_trace(tmp_path_factory):
+    """A capture of PIN's group, saved: ``(trace, path)``."""
+    from paxi_tpu_torch import trace
+    t = trace.capture(sim_protocol(PIN["name"]),
+                      _torch_ranks.sim_config(PIN["cfg_kw"], PIN["workload"]),
+                      FuzzConfig(**PIN["fuzz_kw"]), PIN["seed"],
+                      PIN["n_groups"], PIN["steps"], group=PIN["group"],
+                      device="cpu")
+    path = trace.save(str(tmp_path_factory.mktemp("pin") / "pg"), t)
+    return t, path
+
+
+@pytest.fixture(scope="module")
+def ranks(pin_trace):
     """Every rank's results of the one spawn of this file."""
+    pinned = {"pg": (PIN["name"], PIN["cfg_kw"], PIN["fuzz_kw"],
+                     PIN["n_groups"], PIN["seed"], PIN["group"],
+                     _pin_record()[1], PIN["workload"])}
     return spawn(WORLD, _torch_ranks.all_cases, CASES, SHIFT_SHAPES,
-                 device="cpu")
+                 pinned, (pin_trace[1],), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +143,45 @@ def test_every_rank_holds_the_same_sums_and_state(ranks, label):
     for r in range(1, WORLD):
         assert_tree_equal(ranks[0]["cases"][label], ranks[r]["cases"][label],
                           f"rank {r}")
+
+
+@pytest.mark.parametrize("label", PER_GROUP)
+def test_per_group_sharded_run_equals_one_device(ranks, label):
+    """A per-group kernel's sharded run is the single-device run: every
+    group keeps its key, so state, metrics and violations are equal."""
+    name, cfg_kw, fuzz_kw, g, t, seed, wl = CASES[label]
+    want = runner.make_run(sim_protocol(name),
+                           _torch_ranks.sim_config(cfg_kw, wl),
+                           FuzzConfig(**fuzz_kw), device="cpu")(
+        tr.PRNGKey(seed), g, t)
+    assert_tree_equal(want, ranks[0]["cases"][label], label)
+
+
+def test_sharded_pinned_replay_equals_the_pinned_run(ranks):
+    rec, sched = _pin_record()
+    cfg = _torch_ranks.sim_config(PIN["cfg_kw"], PIN["workload"])
+    want = runner.make_pinned_run(
+        sim_protocol(PIN["name"]), cfg, FuzzConfig(**PIN["fuzz_kw"]),
+        PIN["group"], device="cpu")(tr.PRNGKey(PIN["seed"]),
+                                    PIN["n_groups"], sched)
+    for r in range(WORLD):
+        assert_tree_equal(want, ranks[r]["pinned"]["pg"], f"rank {r}")
+    # an unedited record pins to the recorded run itself
+    assert_tree_equal(rec[:3], want[:3], "pinned == recorded")
+
+
+def test_sharded_trace_replay_equals_replay(ranks, pin_trace):
+    from paxi_tpu_torch import trace
+    trace_, _ = pin_trace
+    want = trace.replay(trace_, device="cpu")
+    assert want.state_hash == trace_.meta["capture_state_hash"]
+    for r in range(WORLD):
+        h, viols, steps, metrics, hist = ranks[r]["replays"][0]
+        assert h == want.state_hash
+        assert viols == want.violations
+        np.testing.assert_array_equal(steps, want.viol_steps)
+        assert metrics == want.metrics
+        assert hist == want.lat_hist
 
 
 def test_pad_groups_are_excluded_from_protocol_metrics(ranks):
@@ -249,13 +336,23 @@ def test_pinned_replay_rejects_lane_major():
                                 mesh=make_mesh(device="cpu"))
 
 
-def test_per_group_kernels_wait_for_their_slice():
-    per_group = SimProtocol(name="paxos_pg", mailbox_spec=None,
-                            init_state=None, step=None, metrics=None,
-                            invariants=None, batched=False)
-    with pytest.raises(NotImplementedError, match="paxos_pg"):
-        make_sharded_run(per_group, SimConfig(), mesh=make_mesh(
-            device="cpu"))
+def test_per_group_kernels_wait_for_their_slice(ranks):
+    """The per-group slice is here: a padded paxos_pg run over four ranks
+    reports the real groups only — its summed metrics equal the metrics of
+    the gathered (trimmed) state, and its pads add no counters."""
+    name, cfg_kw, fuzz_kw, g, t, seed, wl = CASES["paxos_pg_pad"]
+    state, metrics, _ = ranks[0]["cases"]["paxos_pg_pad"]
+    assert state["execute"].shape[0] == g
+    cfg = _torch_ranks.sim_config(cfg_kw, wl)
+    again = sim_protocol(name).metrics(
+        {k: torch.from_numpy(v) for k, v in state.items()}, cfg)
+    for k, v in again.items():
+        assert int(metrics[k]) == int(v.sum()), k
+    assert state["wl_gid"].tolist() == list(range(g))
+    one = runner.make_run(sim_protocol(name), cfg, FuzzConfig(**fuzz_kw),
+                          device="cpu")(tr.PRNGKey(seed), g, t)[1]
+    assert all(int(metrics[k]) == int(v) for k, v in one.items()
+               if k.startswith("net_"))
 
 
 def test_mesh_needs_a_device(monkeypatch):

@@ -152,20 +152,28 @@ def test_entry_points_need_a_device(monkeypatch):
 
 
 def test_unported_options_raise():
-    proto, cfg = sim_protocol("paxos"), SimConfig(**CFG)
-    with pytest.raises(NotImplementedError):
-        simulate(proto, SimConfig(workload=object(), **CFG), G, 1,
-                 device="cpu")
-    # scenarios are ported (tests/test_torch_scenarios.py); the sharded
-    # replay is not
-    from paxi_tpu_torch.trace import Trace, replay
-    with pytest.raises(NotImplementedError, match="item 12"):
-        replay(Trace(meta={}, sched={}), mesh=object(), device="cpu")
+    """Workloads, scenarios and the sharded replay are ported
+    (tests/test_torch_workload.py, test_torch_scenarios.py,
+    test_torch_parallel.py); what is left raises: an unported protocol, a
+    workload that does not fit the key space, and a sharded replay of a
+    lane-major kernel (which the reference refuses too)."""
+    from paxi_tpu_torch.parallel import make_sharded_pinned_run
+    from paxi_tpu_torch.workload import HOTRANGE, ZIPF99, apply_workload
     with pytest.raises(KeyError):
         sim_protocol("abd")
+    with pytest.raises(ValueError, match="hot_keys"):
+        apply_workload(SimConfig(**CFG).with_(n_keys=4), HOTRANGE)
+    with pytest.raises(NotImplementedError, match="lane-major"):
+        make_sharded_pinned_run(sim_protocol("paxos"), SimConfig(**CFG),
+                                FuzzConfig(), 0, mesh=object())
+    res = simulate(sim_protocol("paxos"),
+                   apply_workload(SimConfig(**CFG), ZIPF99), G, 4,
+                   device="cpu")
+    assert int(res.violations) == 0 and "wl_hot_n" in res.metrics
 
 
-@pytest.mark.parametrize("name", ["paxos", "epaxos", "sdpaxos", "wpaxos"])
+@pytest.mark.parametrize("name", ["paxos", "epaxos", "sdpaxos", "wpaxos",
+                                  "paxos_pg"])
 def test_init_state_needs_a_device(monkeypatch, name):
     """A public function that builds state, called without a device,
     runs on the card, so without CUDA it raises instead of building on

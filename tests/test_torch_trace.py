@@ -290,15 +290,59 @@ def test_port_shrink_of_the_witness(witnesses):
 
 
 def test_no_violation_no_trace_and_sharded_replay_raises(witnesses):
+    """A lane-major trace cannot replay sharded (its kernel draws
+    whole-batch randomness), as in the reference; per-group traces can
+    (``test_sharded_replay_at_world_one``)."""
+    from paxi_tpu_torch.parallel import make_mesh
     fz = _pfuzz(p_drop=0.05, scenario="wan3z")
     assert ptr.capture(sim_protocol("wpaxos"), SimConfig(**THINQ1), fz,
                        device="cpu", **WITNESS) is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ptr.replay(witnesses[1], mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="lane-major"):
+        ptr.replay(witnesses[1], mesh=make_mesh(device="cpu"))
     with pytest.raises(ValueError, match="nothing to shrink"):
         ptr.shrink(witnesses[1].with_sched(ptr.neutralize(
             witnesses[1].sched, ptr.list_events(witnesses[1].sched))),
             max_trials=2, device="cpu")
+
+
+# ---- workload traces and the per-group sharded replay -----------------------
+
+def test_jax_workload_trace_replays_in_the_port(tmp_path):
+    """A JAX capture of a workload run (paxos under zipf99, a forced group)
+    loads in the port with its workload rebuilt as a hashable Workload, and
+    replays to the capture's state hash, counters and histogram; the port's
+    own capture of it hashes the same."""
+    from paxi_tpu.workload import ZIPF99 as JZIPF
+    from paxi_tpu_torch.workload import ZIPF99
+    jc = JCfg(**PAXOS).with_(workload=JZIPF)
+    jt = jtr.capture(jax_protocol("paxos"), jc, _jfuzz(**MIXED), seed=2,
+                     n_groups=6, n_steps=24, group=5)
+    pt = ptr.load(jtr.save(str(tmp_path / "wl"), jt))
+    cfg = pt.sim_config()
+    assert cfg.workload == ZIPF99 and hash(cfg) == hash(
+        SimConfig(**PAXOS).with_(workload=ZIPF99))
+    r = ptr.replay(pt, device="cpu")
+    assert r.state_hash == jt.meta["capture_state_hash"]
+    assert r.counters == jt.meta["capture_counters"]
+    assert r.lat_hist == jt.meta["capture_lat_hist"]
+    mine = ptr.capture(sim_protocol("paxos"), cfg, _pfuzz(**MIXED), seed=2,
+                       n_groups=6, n_steps=24, group=5, device="cpu")
+    assert mine.meta["schedule_hash"] == jt.meta["schedule_hash"]
+    assert mine.sim_config() == cfg
+
+
+def test_sharded_replay_at_world_one():
+    """``replay(mesh=...)`` of a per-group trace on a one-rank mesh equals
+    ``replay``; four ranks are held in tests/test_torch_parallel.py."""
+    from paxi_tpu_torch.parallel import make_mesh
+    t = ptr.capture(sim_protocol("paxos_pg"), SimConfig(**PAXOS),
+                    _pfuzz(**MIXED), seed=3, n_groups=5, n_steps=20,
+                    group=2, device="cpu")
+    a = ptr.replay(t, device="cpu")
+    b = ptr.replay(t, mesh=make_mesh(device="cpu"))
+    assert a.state_hash == b.state_hash == t.meta["capture_state_hash"]
+    assert a.metrics == b.metrics and a.lat_hist == b.lat_hist
+    np.testing.assert_array_equal(a.viol_steps, b.viol_steps)
 
 
 # ---- hashes, snapshots and series -----------------------------------------

@@ -88,10 +88,17 @@ def test_runs_commit_steal_and_split_latency(runs):
 
 
 def test_workload_raises():
-    with pytest.raises(NotImplementedError, match="workload"):
-        sim_protocol("wpaxos").init_state(
-            SimConfig(**GRID).with_(workload=object()), None, 2,
-            device="cpu")
+    """Workloads run on wpaxos (tests/test_torch_workload_wpaxos.py); a
+    spec that does not fit the key space raises, and a valid one adds its
+    planes to the state."""
+    from paxi_tpu_torch.workload import (CLASSES, HOTRANGE, ZIPF99,
+                                         apply_workload)
+    with pytest.raises(ValueError, match="hot_keys"):
+        apply_workload(SimConfig(**GRID).with_(n_keys=4), HOTRANGE)
+    state = sim_protocol("wpaxos").init_state(
+        apply_workload(SimConfig(**GRID), ZIPF99), None, 2, device="cpu")
+    assert state["wl_gid"].tolist() == [0, 1]
+    assert {f"m_wl_hist_{c}" for c in CLASSES} <= set(state)
 
 
 def test_one_step_from_mid_run_carry():
