@@ -11,9 +11,14 @@ non-zero exit code and no result line:
    (one ``nvcc`` a source, started together: exchange, closure,
    lane_shift);
 2. kernels against their plain versions at the main paths' shapes, exact:
-   the two exchange kernels at 100,000 groups x 5 replicas for the paxos
-   and the epaxos mailbox (wheel depth 1 and 3) and at 9 replicas for the
-   wpaxos mailbox at the six-slot wheel of the wan3z scenario, the closure
+   the two exchange kernels, one launch a half over every message type of
+   a step, at 100,000 groups x 5 replicas for the paxos and the epaxos
+   mailbox (wheel depth 1 and 3) and at 9 replicas for the wpaxos mailbox
+   at the six-slot wheel of the wan3z scenario, the outbox planes laid as
+   protocols send them (transposed ``dst_major`` views; the checks add
+   planes broadcast over dst, misaligned slices and a ragged 13 groups),
+   each timed alone, as the whole wrapper call and as its plain version,
+   against the bytes bound of ``csrc/exchange.cu``; the closure
    kernel at the EPaxos execution step's shape (500,000 graphs of 80 nodes, two
    densities), on the graphs the EPaxos path itself hands the closure at
    step 30 of its fault-free and fuzzed runs, and at 130 and 256 nodes,
@@ -34,7 +39,7 @@ non-zero exit code and no result line:
    ``sdpaxos_tokens``, 80 steps) and wpaxos (``wpaxos_3x3_grid``, 60
    steps) at 100,000 groups, fault-free, with
    their rates; each must commit its count (``NEW_PATHS``) with one
-   launch of each exchange kernel a message type a step;
+   launch of each exchange kernel a step;
 5. record, replay, shrink, scenarios and checkpoints: the hunt's seeded
    bug (``wpaxos_thinq1``, 9 replicas in 3 zones, under p_drop 0.05 inside
    the wan3z zone-latency matrix) captured at 100,000 groups x 100 steps
@@ -103,6 +108,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 # Hopper white paper); the closure kernel's word updates run there
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TIMED_REPS = 20
+EXCHANGE_LAUNCHES_A_STEP = 1         # each exchange half, every message type
 SHIFT_INNER = 4                      # shift calls a timed run (world 1)
 FUZZ_ARGS = dict(p_drop=0.1, max_delay=3)
 # the two main paths: configuration, depth, and what a fault-free run
@@ -230,35 +236,112 @@ def reset_launch_counts() -> None:
 
 # ---- phase 2: kernels against their plain versions ----------------------
 
-def random_blocks(spec, d: int, gen: torch.Generator,
-                  replicas: int = REPLICAS):
-    """Seeded random stacked wheel blocks, outboxes and fault planes at
-    the main path's shape, one set per message type."""
+# how the outbox planes lie in phase 2: every other field plane (and the
+# valid plane of every other type) a ring.dst_major view, as protocols
+# send replies; the correctness checks add a plane broadcast over dst and
+# a slice one group in (misaligned), and a ragged group count
+LAYS = ("contiguous", "dst_major")
+CHECK_LAYS = ("contiguous", "dst_major", "broadcast", "sliced")
+RAGGED_GROUPS = 13
+
+
+def lay(x: torch.Tensor, how: str) -> torch.Tensor:
+    """``x (R, R, G)`` as a tensor that lies ``how``, equal in value (a
+    broadcast takes dst 0's values)."""
+    if how == "dst_major":
+        return x.transpose(0, 1).contiguous().transpose(0, 1)
+    if how == "broadcast":
+        return x[:, :1].expand(x.shape)
+    if how == "sliced":
+        wide = torch.zeros(x.shape[:-1] + (x.shape[-1] + 1,),
+                           dtype=x.dtype, device=x.device)
+        wide[..., 1:] = x
+        return wide[..., 1:]
+    return x
+
+
+def step_inputs(spec, d: int, gen: torch.Generator,
+                replicas: int = REPLICAS, groups: int = GROUPS,
+                lays=LAYS):
+    """Seeded random inputs of one step's exchange: the wheel, the outbox
+    (its planes laid in turn as ``lays``), the fault state and the fault
+    planes."""
+    from paxi_tpu_torch.sim import mailbox as mb
     dev = torch.device(DEVICE)
-    R, G = replicas, GROUPS
-    blocks = {}
-    for name, fields in spec.items():
-        F = 1 + len(fields)
+    R, G = replicas, groups
 
-        def ints(shape, hi):
-            return torch.randint(0, hi, shape, generator=gen, device=dev,
-                                 dtype=torch.int32)
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
 
-        w = ints((d, F, R, R, G), 1000)
+    wheel, outbox, faults = {}, {}, {}
+    for j, (name, fields) in enumerate(spec.items()):
+        w = ints((d, 1 + len(fields), R, R, G), 1000)
         w[:, 0] = ints((d, R, R, G), 2)
-        ob = ints((F, R, R, G), 1000)
-        ob[0] = ints((R, R, G), 2)
-        eff = ints((R, R, G), 2).bool()
-        delay = ints((R, R, G), d) + 1
-        dup = ints((R, R, G), 2).bool()
-        blocks[name] = (w, ob, eff, delay, dup)
-    return blocks
+        wheel[name] = mb.WheelBox(tuple(fields), w)
+        outbox[name] = {"valid": lay(ints((R, R, G), 2).bool(),
+                                     lays[j % len(lays)])}
+        for i, f in enumerate(fields):
+            outbox[name][f] = lay(ints((R, R, G), 1000), lays[i % len(lays)])
+        faults[name] = {"drop": ints((R, R, G), 5) == 0,
+                        "delay": ints((R, R, G), d) + 1,
+                        "dup": ints((R, R, G), 3) == 0}
+    fs = {"conn": ints((R, R, G), 6) != 0, "crashed": ints((R, G), 6) == 0}
+    return wheel, outbox, fs, faults
+
+
+def exchange_bytes(spec, d: int, replicas: int, groups: int):
+    """The least bytes one step's deliver and insert move (the formula of
+    csrc/exchange.cu), each input read once and each output written once:
+    a type of F planes on E = R*R*G edges, deliver reads d*F*E*4 and
+    writes E (valid) + (F-1)*E*4 + d*F*E*4; insert reads d*F*E*4 +
+    (F-1)*E*4 + E (valid) + E (drop) + E (dup) + 4E (delay) and writes
+    d*F*E*4; conn (E bytes) and crashed (R*G) once a step."""
+    E = replicas * replicas * groups
+    deliver = insert = 0
+    for fields in spec.values():
+        F = 1 + len(fields)
+        deliver += d * F * E * 4 + E + (F - 1) * E * 4 + d * F * E * 4
+        insert += d * F * E * 4 + (F - 1) * E * 4 + 7 * E + d * F * E * 4
+    return deliver, insert + E + replicas * groups
+
+
+def exchange_err(wheel, outbox, fs, faults):
+    """Max |kernel - plain| of one step's deliver and insert, and the
+    launches each half made."""
+    from paxi_tpu_torch.ops import exchange as ops
+    from paxi_tpu_torch.sim import mailbox as mb
+
+    def diff(a, b):
+        if a.dtype == torch.bool:
+            return int((a != b).sum()) if a.dtype == b.dtype else 1
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    before = (ops.wheel_deliver.launches, ops.wheel_insert.launches)
+    inbox, rolled = ops.wheel_deliver(wheel)
+    new = ops.wheel_insert(wheel, outbox, fs, faults)
+    launched = (ops.wheel_deliver.launches - before[0],
+                ops.wheel_insert.launches - before[1])
+    want_inbox, want_rolled = mb.wheel_deliver(wheel)
+    want = mb.wheel_insert(wheel, outbox, fs, faults)
+    torch.cuda.synchronize()
+    err_d = max(max(diff(inbox[n][k], v) for k, v in want_inbox[n].items())
+                for n in wheel)
+    err_d = max(err_d, max(diff(rolled[n].planes, want_rolled[n].planes)
+                           for n in wheel))
+    err_i = max(diff(new[n].planes, want[n].planes) for n in want)
+    return err_d, err_i, launched
 
 
 def exchange_phase(path: str, spec, depths=(1, 3),
                    replicas: int = REPLICAS):
-    """Both exchange kernels on one mailbox's blocks, one step's worth
-    (every message type), at each wheel depth of ``depths``."""
+    """Both exchange kernels on one mailbox, one step's worth (every
+    message type in one launch a half), at each wheel depth of
+    ``depths``: exact against the plain versions at the main path's
+    shape (outbox planes laid as ``LAYS``) and at ``RAGGED_GROUPS``
+    groups with every lay of ``CHECK_LAYS``; the kernel alone (its
+    prepared launches, four an event pair), the whole wrapper call and the
+    plain version timed."""
     from paxi_tpu_torch.ops import exchange as ops
     from paxi_tpu_torch.sim import mailbox as mb
 
@@ -266,52 +349,55 @@ def exchange_phase(path: str, spec, depths=(1, 3),
     gen.manual_seed(SEED)
     rows = {}
     for d in depths:
-        blocks = random_blocks(spec, d, gen, replicas)
         err = {"wheel_deliver": 0, "wheel_insert": 0}
-        for w, ob, eff, delay, dup in blocks.values():
-            got, want = ops.deliver_launch(w), mb.deliver_planes(w)
-            for g_, w_ in zip(got, want):
-                err["wheel_deliver"] = max(
-                    err["wheel_deliver"],
-                    int((g_.long() - w_.long()).abs().max()))
-            got = ops.insert_launch(w, ob, eff, delay, dup)
-            want = mb.insert_planes(w, ob, eff, delay, dup)
-            err["wheel_insert"] = max(err["wheel_insert"],
-                                      int((got.long() - want.long())
-                                          .abs().max()))
-        torch.cuda.synchronize()
-        # bytes one step moves over all message types: each input read
-        # once, each output written once
-        deliver_bytes = sum(w.numel() * 4 + w[0].numel() * 4 + w.numel() * 4
-                            for w, *_ in blocks.values())
-        insert_bytes = sum(w.numel() * 4 * 2 + ob.numel() * 4
-                           + eff.numel() + delay.numel() * 4 + dup.numel()
-                           for w, ob, eff, delay, dup in blocks.values())
-        vals = list(blocks.values())
+        for groups, lays in ((RAGGED_GROUPS, CHECK_LAYS),
+                             (GROUPS, CHECK_LAYS)):
+            e_d, e_i, _ = exchange_err(*step_inputs(spec, d, gen, replicas,
+                                                    groups, lays))
+            err["wheel_deliver"] = max(err["wheel_deliver"], e_d)
+            err["wheel_insert"] = max(err["wheel_insert"], e_i)
+        wheel, outbox, fs, faults = args = step_inputs(spec, d, gen,
+                                                       replicas)
+        e_d, e_i, launched = exchange_err(*args)
+        err["wheel_deliver"] = max(err["wheel_deliver"], e_d)
+        err["wheel_insert"] = max(err["wheel_insert"], e_i)
+        deliver_bytes, insert_bytes = exchange_bytes(spec, d, replicas,
+                                                     GROUPS)
+        d_plans = ops.deliver_plan(wheel)[0]
+        i_plans = ops.insert_plan(*args)[0]
         timings = {
             "wheel_deliver": (
-                median_ms(lambda: [ops.deliver_launch(b[0]) for b in vals]),
-                median_ms(lambda: [mb.deliver_planes(b[0]) for b in vals]),
-                deliver_bytes),
+                median_ms(lambda: ops.launch(d_plans), inner=4),
+                median_ms(lambda: ops.wheel_deliver(wheel)),
+                median_ms(lambda: mb.wheel_deliver(wheel)),
+                deliver_bytes, launched[0]),
             "wheel_insert": (
-                median_ms(lambda: [ops.insert_launch(*b) for b in vals]),
-                median_ms(lambda: [mb.insert_planes(*b) for b in vals]),
-                insert_bytes),
+                median_ms(lambda: ops.launch(i_plans), inner=4),
+                median_ms(lambda: ops.wheel_insert(*args)),
+                median_ms(lambda: mb.wheel_insert(*args)),
+                insert_bytes, launched[1]),
         }
-        for name, (ms, plain_ms, nbytes) in timings.items():
+        for name, (ms, wrapper_ms, plain_ms, nbytes, n_launch) \
+                in timings.items():
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             row = {"kernel": name, "mailbox": path, "wheel_depth": d,
                    "groups": GROUPS, "replicas": replicas,
-                   "message_types": len(vals),
-                   "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                   "message_types": len(spec),
+                   "planes": sum(1 + len(f) for f in spec.values()),
+                   "launches_a_step": n_launch,
+                   "max_abs_err": err[name], "ms": ms,
+                   "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                    "bytes": nbytes, "bound_ms": bound_ms,
                    "share_of_bound": bound_ms / ms}
             log("kernel " + json.dumps(row))
             if err[name] != 0:
                 fail(f"{name} differs from its plain version at d={d} "
                      f"({path} mailbox)")
+            if n_launch != EXCHANGE_LAUNCHES_A_STEP:
+                fail(f"{name} made {n_launch} launches for a step")
             rows[(name, d)] = row
-        del blocks, vals
+        del wheel, outbox, fs, faults, args, d_plans, i_plans
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -494,7 +580,6 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
                    device=DEVICE)
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
-    n_types = len(proto.mailbox_spec(cfg))
     done = int(res.metrics[spec["count"]])
     row = {
         "schedule": label,
@@ -525,8 +610,8 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
             fail(f"{path} {label}: {got} != {want}")
         if int(res.metrics.get("recovered", 0)) != 0:
             fail(f"{path} {label}: recovered instances on a fault-free run")
-    want_launches = {"wheel_deliver": steps * n_types,
-                     "wheel_insert": steps * n_types,
+    want_launches = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
+                     "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
                      "transitive_closure": steps if path == "epaxos" else 0,
                      "make_remote_lane_shift": 0}
     for name, n in launches.items():
@@ -651,9 +736,8 @@ def new_path_run(path: str, smi: str):
         fail(f"{path}: safety violations")
     if done != spec["expect"]:
         fail(f"{path}: committed {done}, expected {spec['expect']}")
-    n_types = len(proto.mailbox_spec(cfg))
-    want_launches = {"wheel_deliver": steps * n_types,
-                     "wheel_insert": steps * n_types,
+    want_launches = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
+                     "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
                      "transitive_closure": 0, "make_remote_lane_shift": 0}
     if launches != want_launches:
         fail(f"{path}: kernel launches {launches}, expected "
@@ -669,9 +753,9 @@ def geo_fuzz(drop: float = GEO_DROP):
     return FuzzConfig(p_drop=drop, scenario=NAMED["wan3z"])
 
 
-def expect_launches(label: str, launches, steps: int, n_types: int) -> None:
-    want = {"wheel_deliver": steps * n_types,
-            "wheel_insert": steps * n_types,
+def expect_launches(label: str, launches, steps: int) -> None:
+    want = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
+            "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
             "transitive_closure": 0, "make_remote_lane_shift": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
@@ -694,7 +778,6 @@ def witness_phase(smi: str):
 
     proto, cfg, fuzz = (sim_protocol("wpaxos_thinq1"),
                         SimConfig(**WITNESS_CFG), geo_fuzz())
-    n_types = len(proto.mailbox_spec(cfg))
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -705,7 +788,7 @@ def witness_phase(smi: str):
     peak = torch.cuda.max_memory_allocated()
     if tr_ is None:
         fail("wpaxos_thinq1 under GEO3Z found no violating group")
-    expect_launches("witness capture", launches, WITNESS_STEPS, n_types)
+    expect_launches("witness capture", launches, WITNESS_STEPS)
     m = tr_.meta
     sched_bytes = sum(v.nbytes for v in (tr_.sched["conn"],
                                          tr_.sched["crashed"]))
@@ -727,7 +810,7 @@ def witness_phase(smi: str):
     r = T.check_determinism(tr_, device=DEVICE)
     replay_s = (time.perf_counter() - t0) / 2
     launches = launch_counts()
-    expect_launches("witness replays", launches, 2 * WITNESS_STEPS, n_types)
+    expect_launches("witness replays", launches, 2 * WITNESS_STEPS)
     for what, got, want in (
             ("state hash", r.state_hash, m["capture_state_hash"]),
             ("counters", r.counters, m["capture_counters"]),
@@ -769,7 +852,7 @@ def witness_phase(smi: str):
         "wall_s": real_s, "kernels": launches}))
     if int(real.violations) != 0 or real.inscan_violations != 0:
         fail("the real wpaxos violates under the witness's schedule")
-    expect_launches("real wpaxos", launches, WITNESS_STEPS, n_types)
+    expect_launches("real wpaxos", launches, WITNESS_STEPS)
     return capture_launches
 
 
@@ -865,8 +948,7 @@ def scenario_phase(smi: str):
         fail("wpaxos under wan3z: safety violations")
     if done <= 0 or "commit_lat_cross_rounds" not in row:
         fail("wpaxos under wan3z committed nothing across zones")
-    expect_launches("scenario path", launches, SCENARIO_STEPS,
-                    len(proto.mailbox_spec(cfg)))
+    expect_launches("scenario path", launches, SCENARIO_STEPS)
     return row
 
 
@@ -924,8 +1006,7 @@ def checkpoint_phase(smi: str, straight):
         fail("the resumed paxos run's state differs from the straight run")
     if diff or viols != int(straight.violations) or viols != 0:
         fail(f"the resumed paxos run differs in {diff} or violates")
-    expect_launches("checkpoint path", launches, steps,
-                    len(proto.mailbox_spec(cfg)))
+    expect_launches("checkpoint path", launches, steps)
     os.remove(path)
 
 
@@ -1068,8 +1149,7 @@ def workload_cell(path: str, wl: str, smi: str):
     want = WL_EXPECT.get((path, wl))
     if want is not None and done != want:
         fail(f"workload {path} {wl}: committed {done}, expected {want}")
-    expect_launches(f"workload {path} {wl}", launches, steps,
-                    len(proto.mailbox_spec(cfg)))
+    expect_launches(f"workload {path} {wl}", launches, steps)
     return row, res
 
 
@@ -1388,8 +1468,6 @@ def four_ranks_phase(smi: str, pg_sched):
     the sharded north star's row, rank 0's phase 7 per-group results and
     the sharded card runs."""
     from paxi_tpu_torch.parallel.launch import spawn
-    from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import SimConfig
 
     t0 = time.perf_counter()
     ranks = spawn(SHARD_WORLD, card_rank, pg_sched, backend="gloo",
@@ -1485,13 +1563,12 @@ def four_ranks_phase(smi: str, pg_sched):
              f"expected {want}")
     if ns[0]["violations"] != 0 or m["inscan_violations"] != 0:
         fail("sharded north star: safety violations")
-    n_types = len(sim_protocol("paxos").mailbox_spec(
-        SimConfig(**PATHS["paxos"]["cfg"])))
+    want = steps * EXCHANGE_LAUNCHES_A_STEP
     for n in ns:
-        if n["launches"]["wheel_deliver"] != steps * n_types \
-                or n["launches"]["wheel_insert"] != steps * n_types:
+        if n["launches"]["wheel_deliver"] != want \
+                or n["launches"]["wheel_insert"] != want:
             fail(f"sharded north star: a rank's exchange launches "
-                 f"{n['launches']} != {steps * n_types}")
+                 f"{n['launches']} != {want}")
     return shift_row, row, ranks[0]["pg"], card_small
 
 
@@ -1623,15 +1700,19 @@ def main() -> int:
             "source": "paxi_tpu_torch/ops/csrc/exchange.cu",
             "replaces": replaces, "launches": launches[kname],
             "launches_by_path": by_path[kname],
+            "launches_a_step": row["launches_a_step"],
             "max_abs_err": max(r["max_abs_err"] for x in xrows.values()
                                for (k, _), r in x.items() if k == kname),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             **{f"{p}_d{d}": {k: xrows[x][(kname, d)][k]
-                             for k in ("ms", "plain_ms", "bound_ms",
-                                       "share_of_bound")}
-               for p, x, d in (("wpaxos_wan3z", "wpaxos_wan3z", 6),
+                             for k in ("ms", "wrapper_ms", "plain_ms",
+                                       "bound_ms", "share_of_bound")}
+               for p, x, d in (("paxos", "paxos", 1), ("paxos", "paxos", 3),
+                               ("epaxos", "epaxos", 1),
+                               ("epaxos", "epaxos", 3),
+                               ("wpaxos_wan3z", "wpaxos_wan3z", 6),
                                ("paxos_r3", "paxos_workload", 1),
                                ("wpaxos_grid", "wpaxos_workload", 1))}})
     row = crows[0]              # main-path shape, the sparser density

@@ -3,8 +3,11 @@ ranks (CUDA for Hopper).
 
 ``wheel_deliver`` and ``wheel_insert`` replace the JAX package's Pallas
 pair in ``paxi_tpu/ops/exchange.py`` and have the signatures of the plain
-exchange in ``sim/mailbox.py``.  Per message type one kernel launch moves
-the stacked ``(d, F, R, R, G)`` wheel block (``csrc/exchange.cu``).
+exchange in ``sim/mailbox.py``.  On the card each half of a step is one
+kernel launch over every message type (``csrc/exchange.cu``): a segment
+table gives each type's wheel block, outputs and, for the insert, its
+fault planes and the outbox planes where they lie (their own pointers and
+src/dst strides); the insert forms the effective-send mask itself.
 
 ``make_remote_lane_shift(mesh)`` replaces the reference's function of the
 same name: ``shift(x)`` moves every rank's whole shard to its right-hand
@@ -15,7 +18,7 @@ straight into the neighbour's memory through CUDA IPC
 as in the reference; it is the staged group-migration primitive.
 
 Dispatch is by the tensors' device and nothing else: on CPU tensors each
-runs its plain version (``mailbox.deliver_planes`` / ``insert_planes`` /
+runs its plain version (``mailbox.wheel_deliver`` / ``wheel_insert`` /
 ``lane_shift_plain``); on CUDA tensors it launches the kernel or raises.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wheel_deliver.launches``, ``wheel_insert.launches``,
@@ -28,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +40,12 @@ from paxi_tpu_torch.ops import _build
 from paxi_tpu_torch.sim import mailbox as mb
 
 _LIB = "exchange"
+MAX_TYPES = 16           # message types a launch takes (csrc kMaxSegments)
+MAX_PLANES = 128         # outbox planes an insert launch takes (kMaxPlanes)
+BLOCK_UNITS = 256        # units a block (csrc kThreads)
+LANES = 4                # groups (deliver: elements) a unit moves
+OUT_ALIGN = 256          # byte offset of each output in a launch's buffer
+_INT32_MAX = 2 ** 31 - 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,24 +53,119 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built and
     loaded on the first launch)."""
     lib = _build.load(_LIB)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.paxi_wheel_deliver.argtypes = [p, p, p, i64, i32, p]
-    lib.paxi_wheel_deliver.restype = i32
-    lib.paxi_wheel_insert.argtypes = [p, p, p, p, p, p, i64, i32, i32, p]
-    lib.paxi_wheel_insert.restype = i32
+    args = [ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+    for fn in ("paxi_exchange_deliver", "paxi_exchange_insert"):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+# ---- the launch layout (pure Python) ------------------------------------
+
+def deliver_units(n_planes: int, edge: int) -> int:
+    """A deliver segment's units: each plane of ``edge`` elements in runs
+    of ``LANES`` (the last one short when ``edge % LANES``)."""
+    return n_planes * -(-edge // LANES)
+
+
+def insert_units(n: int, groups: int) -> int:
+    """An insert segment's units: each ``(src, dst)`` row of ``groups``
+    cells in runs of ``LANES`` consecutive groups."""
+    return n * n * -(-groups // LANES)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // OUT_ALIGN) * OUT_ALIGN
+
+
+def block_table(units: Sequence[int]) -> Tuple[int, ...]:
+    """Each segment's first block when every segment starts a new block
+    of ``BLOCK_UNITS`` units; the last entry is the grid."""
+    out, at = [0], 0
+    for u in units:
+        at += -(-u // BLOCK_UNITS)
+        out.append(at)
+    return tuple(out)
+
+
+def launch_groups(n_planes: Sequence[int]) -> List[List[int]]:
+    """The segments (message types, in order) cut into launches of at
+    most ``MAX_TYPES`` types and ``MAX_PLANES`` planes each."""
+    groups, planes = [[]], 0
+    for i, p in enumerate(n_planes):
+        if p > MAX_PLANES:
+            raise ValueError(f"a message type of {p} planes exceeds the "
+                             f"{MAX_PLANES} a launch takes")
+        if len(groups[-1]) == MAX_TYPES or planes + p > MAX_PLANES:
+            groups.append([])
+            planes = 0
+        groups[-1].append(i)
+        planes += p
+    return [g for g in groups if g]
+
+
+def vector_ok(ptr: int, itemsize: int, strides: Sequence[int],
+              groups: int) -> bool:
+    """Whether every 4-group unit of a ``(..., G)`` plane at ``ptr`` with
+    the leading ``strides`` (elements) is one aligned word of ``LANES *
+    itemsize`` bytes (the kernel's vector path); else the scalar path."""
+    return (groups % LANES == 0 and ptr % (LANES * itemsize) == 0
+            and all(s % LANES == 0 for s in strides))
+
+
+def plane_vector(x: torch.Tensor) -> bool:
+    """``vector_ok`` of an outbox plane ``(src, dst, G)`` as it lies."""
+    return vector_ok(x.data_ptr(), x.element_size(), x.stride()[:-1],
+                     x.shape[-1])
+
+
+# ---- argument checks ------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device,
+           contiguous: bool = True) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _ptr(t: torch.Tensor, name: str, dtype, shape, device) -> int:
+    """The address of a contiguous plane, checked (``_check`` raises)."""
+    if (t.dtype is not dtype or t.device != device or t.shape != shape
+            or not t.is_contiguous()):
+        _check(t, name, dtype, shape, device)
+    return t.data_ptr()
+
+
+def _send(x: torch.Tensor, name: str, dtype, shape, device) -> List[int]:
+    """An outbox plane's table words ``[ptr, src stride, dst stride,
+    vector]``: it is read where it lies, at any src/dst strides below 2**31
+    and the group axis of stride 1."""
+    st = x.stride()
+    if x.dtype is not dtype or x.device != device or x.shape != shape:
+        _check(x, name, dtype, shape, device, contiguous=False)
+    if st[2] != 1 and shape[2] > 1:
+        raise ValueError(f"{name} has group stride {st[2]}: the exchange "
+                         "kernel reads groups at stride 1")
+    if max(st) > _INT32_MAX:
+        raise ValueError(f"{name} has a stride of 2**31 or more")
+    ptr = x.data_ptr()
+    return [ptr, st[0], st[1],
+            int(vector_ok(ptr, x.element_size(), st[:2], shape[2]))]
+
+
+def _check_wheel(w: torch.Tensor, name: str, device) -> None:
+    if w.dim() != 5 or w.shape[0] < 1:
+        raise ValueError(f"wheel block {name} must be (d, F, R, R, G), got "
+                         f"{tuple(w.shape)}")
+    if (w.dtype is not torch.int32 or w.device != device
+            or not w.is_contiguous()):
+        _check(w, f"wheel {name}", torch.int32, w.shape, device)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -69,76 +173,188 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def deliver_launch(w: torch.Tensor):
-    """One message type on the card: ``(inbox, rolled)`` of the stacked
-    wheel ``w (d, F, R, R, G)`` int32, as ``mailbox.deliver_planes``."""
-    if w.ndim != 5 or w.shape[0] < 1:
-        raise ValueError(f"wheel block must be (d, F, R, R, G), got "
-                         f"{tuple(w.shape)}")
-    _check(w, "wheel", torch.int32, w.shape, w.device)
-    d = w.shape[0]
-    inbox = torch.empty(w.shape[1:], dtype=torch.int32, device=w.device)
-    rolled = torch.empty_like(w)
+# ---- the launches -----------------------------------------------------------
+
+class Plan(NamedTuple):
+    """One prepared kernel launch: the C entry point, the number of
+    message types, the table words and the stream."""
+    fn: str
+    n: int
+    words: ctypes.Array
+    stream: int
+
+
+def launch(plans: Sequence[Plan]) -> None:
+    """Launch prepared kernels; each launch adds one to its wrapper's
+    count (``wheel_deliver.launches`` / ``wheel_insert.launches``)."""
     lib = _lib()
-    err = lib.paxi_wheel_deliver(
-        w.data_ptr(), inbox.data_ptr(), rolled.data_ptr(), inbox.numel(), d,
-        torch.cuda.current_stream(w.device).cuda_stream)
-    _raise_on(err, "wheel_deliver")
-    wheel_deliver.launches += 1
-    return inbox, rolled
+    for p in plans:
+        half = wheel_deliver if p.fn == "paxi_exchange_deliver" \
+            else wheel_insert
+        _raise_on(getattr(lib, p.fn)(p.n, p.words, p.stream), half.__name__)
+        half.launches += 1
 
 
-def insert_launch(w, ob, eff, delay, dup):
-    """One message type on the card: the stacked wheel ``w (d, F, R, R,
-    G)`` with the stacked outbox ``ob (F, R, R, G)`` pushed in under
-    ``eff``/``dup`` (bool) and ``delay`` (int32) ``(R, R, G)``, as
-    ``mailbox.insert_planes``."""
-    if w.ndim != 5:
-        raise ValueError(f"wheel block must be (d, F, R, R, G), got "
-                         f"{tuple(w.shape)}")
-    dev, edge = w.device, w.shape[2:]
-    _check(w, "wheel", torch.int32, w.shape, dev)
-    _check(ob, "outbox", torch.int32, w.shape[1:], dev)
-    _check(eff, "eff", torch.bool, edge, dev)
-    _check(delay, "delay", torch.int32, edge, dev)
-    _check(dup, "dup", torch.bool, edge, dev)
-    out = torch.empty_like(w)
-    lib = _lib()
-    err = lib.paxi_wheel_insert(
-        w.data_ptr(), ob.data_ptr(), eff.data_ptr(), delay.data_ptr(),
-        dup.data_ptr(), out.data_ptr(), eff.numel(), w.shape[1], w.shape[0],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "wheel_insert")
-    wheel_insert.launches += 1
-    return out
+def _plan(fn: str, n: int, words: List[int], device) -> Plan:
+    """A launch's plan on the current stream of ``device`` (a plan of CPU
+    tensors, stream 0, only shows the layout: ``launch`` never gets one)."""
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else 0)
+    return Plan(fn, n, (ctypes.c_int64 * len(words))(*words), stream)
 
 
-def _deliver(w: torch.Tensor):
-    if w.device.type == "cpu":
-        return mb.deliver_planes(w)
-    if w.device.type != "cuda":
-        raise ValueError(f"no exchange kernel for device {w.device}")
-    return deliver_launch(w)
+def deliver_plan(wheel: mb.Wheel):
+    """``wheel_deliver`` on the card, prepared: ``(plans, outputs)``.
+    ``launch(plans)`` writes the step's outputs into two fresh
+    allocations: every type's inbox ``valid`` in one bool block ``(n, R,
+    R, G)``, and one int32 buffer holding every type's inbox fields as
+    one block ``(sum(F - 1), R, R, G)``, then each rolled wheel at an
+    ``OUT_ALIGN``-byte offset.  ``outputs()`` returns them as ``(inbox,
+    rolled)``, views made after the launch while the kernel runs."""
+    name0, box0 = next(iter(wheel.items()))
+    device = box0.planes.device
+    _check_wheel(box0.planes, name0, device)
+    edge = box0.planes.shape[2:]
+    R, _, G = edge
+    E = R * R * G
+    n_fields = sum(len(box.fields) for box in wheel.values())
+    segs, views = [], []
+    at_f, at = 0, _aligned(n_fields * E * 4) // 4   # fields, rolled wheels
+    for j, (name, box) in enumerate(wheel.items()):
+        w = box.planes
+        _check_wheel(w, name, device)
+        d, F = w.shape[:2]
+        if w.shape[2:] != edge or F != 1 + len(box.fields):
+            raise ValueError(f"wheel block {name} has shape "
+                             f"{tuple(w.shape)} for {len(box.fields)} "
+                             f"fields on {tuple(edge)} edges")
+        if deliver_units(F, E) > _INT32_MAX:
+            raise ValueError(f"wheel block {name} is too large a launch")
+        ptr = w.data_ptr()
+        segs.append([ptr, j * E, at_f, at, d, F,
+                     int(vector_ok(ptr, 4, (), E)), deliver_units(F, E)])
+        views.append((name, box.fields, at, w.shape, w.stride()))
+        at_f += (F - 1) * E
+        at += _aligned(d * F * E * 4) // 4
+    buf8 = torch.empty((len(segs), R, R, G), dtype=torch.bool, device=device)
+    buf32 = torch.empty(max(at, 1), dtype=torch.int32, device=device)
+    b8, b32 = buf8.data_ptr(), buf32.data_ptr()
+    plans = []
+    for group in launch_groups([0] * len(segs)):
+        block0 = block_table([segs[i][-1] for i in group])
+        words = []
+        for j, i in enumerate(group):
+            ptr, o_valid, o_fields, o_rolled, d, F, vec, _ = segs[i]
+            words += [ptr, b8 + o_valid, b32 + 4 * o_fields,
+                      b32 + 4 * o_rolled, E, d, F,
+                      int(vec and b8 % 4 == 0 and b32 % 16 == 0), block0[j]]
+        plans.append(_plan("paxi_exchange_deliver", len(group),
+                           words + [block0[-1]], device))
+
+    def outputs():
+        valid = buf8.unbind(0)
+        fields = iter(buf32[:n_fields * E].view(n_fields, R, R, G)
+                      .unbind(0))
+        inbox, rolled = {}, {}
+        for (name, names, off, shape, stride), v in zip(views, valid):
+            inbox[name] = {"valid": v, **{f: next(fields) for f in names}}
+            rolled[name] = mb.WheelBox(names,
+                                       buf32.as_strided(shape, stride, off))
+        return inbox, rolled
+
+    return plans, outputs
 
 
-def _insert(w, ob, eff, delay, dup):
-    if w.device.type == "cpu":
-        return mb.insert_planes(w, ob, eff, delay, dup)
-    if w.device.type != "cuda":
-        raise ValueError(f"no exchange kernel for device {w.device}")
-    return insert_launch(w, ob, eff, delay, dup)
+def insert_plan(wheel: mb.Wheel, outbox, fs, faults):
+    """``wheel_insert`` on the card, prepared: ``(plans, outputs)``.
+    ``launch(plans)`` writes every type's new wheel into one fresh int32
+    allocation; ``outputs()`` returns the new wheel, views made after the
+    launch."""
+    device = wheel[min(outbox.keys())].planes.device
+    conn = fs["conn"]
+    R, G = conn.shape[0], conn.shape[-1]
+    edge = torch.Size((R, R, G))
+    words0 = [_ptr(conn, "conn", torch.bool, edge, device),
+              _ptr(fs["crashed"], "crashed", torch.bool, torch.Size((R, G)),
+                   device), R, G]
+    shared_vec = all(vector_ok(p, 1, (), G) for p in words0[:2])
+    segs, planes, views, at = [], [], [], 0
+    for name in sorted(outbox.keys()):
+        box, wbox, f = outbox[name], wheel[name], faults[name]
+        w = wbox.planes
+        _check_wheel(w, name, device)
+        d, F = w.shape[:2]
+        if w.shape[2:] != edge or F != 1 + len(wbox.fields):
+            raise ValueError(f"wheel block {name} has shape "
+                             f"{tuple(w.shape)} for {len(wbox.fields)} "
+                             f"fields on {tuple(edge)} edges")
+        seg = [w.data_ptr(), at,
+               _ptr(f["drop"], f"{name} drop", torch.bool, edge, device),
+               _ptr(f["delay"], f"{name} delay", torch.int32, edge, device),
+               _ptr(f["dup"], f"{name} dup", torch.bool, edge, device)]
+        vec = shared_vec and all(vector_ok(seg[i], n, (), G) for i, n in
+                                 ((0, 4), (2, 1), (3, 4), (4, 1)))
+        segs.append(seg + [d, F, int(vec)])
+        planes.append([_send(box["valid"], f"{name} valid", torch.bool,
+                             edge, device)]
+                      + [_send(box[k], f"{name} {k}", torch.int32, edge,
+                               device) for k in wbox.fields])
+        views.append((name, wbox.fields, at, w.shape, w.stride()))
+        at += _aligned(w.numel() * 4) // 4
+    if insert_units(R, G) > _INT32_MAX:
+        raise ValueError(f"a mailbox of {R} x {R} x {G} edges is too large "
+                         "a launch")
+    buf = torch.empty(max(at, 1), dtype=torch.int32, device=device)
+    base = buf.data_ptr()
+    plans = []
+    for group in launch_groups([len(p) for p in planes]):
+        block0 = block_table([insert_units(R, G)] * len(group))
+        words = list(words0)
+        for j, i in enumerate(group):
+            seg = list(segs[i])
+            seg[1] = base + 4 * seg[1]
+            seg[7] = int(seg[7] and base % 16 == 0)
+            words += seg + [block0[j]]
+        words.append(block0[-1])
+        for i in group:
+            for p in planes[i]:
+                words += p
+        plans.append(_plan("paxi_exchange_insert", len(group), words,
+                           device))
+
+    def outputs():
+        return {name: mb.WheelBox(fields, buf.as_strided(shape, stride, off))
+                for name, fields, off, shape, stride in views}
+
+    return plans, outputs
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no exchange kernel for device {x.device}")
+    return x.device.type
 
 
 def wheel_deliver(wheel: mb.Wheel):
     """Pop slot 0 as this step's inbox; rotate the wheel forward (one
-    kernel launch per message type on the card)."""
-    return mb.wheel_deliver(wheel, deliver=_deliver)
+    kernel launch for every message type on the card, ``MAX_TYPES`` a
+    launch)."""
+    if not wheel or _device_of(next(iter(wheel.values())).planes) == "cpu":
+        return mb.wheel_deliver(wheel)
+    plans, outputs = deliver_plan(wheel)
+    launch(plans)
+    return outputs()
 
 
 def wheel_insert(wheel: mb.Wheel, outbox, fs, faults) -> mb.Wheel:
     """Push this step's outbox into the wheel under the fault schedule
-    (one kernel launch per message type on the card)."""
-    return mb.wheel_insert(wheel, outbox, fs, faults, insert=_insert)
+    (one kernel launch for every message type on the card, ``MAX_TYPES``
+    types and ``MAX_PLANES`` outbox planes a launch)."""
+    if not outbox or _device_of(wheel[min(outbox.keys())].planes) == "cpu":
+        return mb.wheel_insert(wheel, outbox, fs, faults)
+    plans, outputs = insert_plan(wheel, outbox, fs, faults)
+    launch(plans)
+    return outputs()
 
 
 wheel_deliver.launches = 0

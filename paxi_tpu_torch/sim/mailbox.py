@@ -10,9 +10,11 @@ as ``delay_collisions``).
 The wheel is scan carry, never public state, so it is stored the way the
 exchange kernels (``ops/exchange.py``) read it: per message type one
 stacked int32 block ``(d, F, src, dst, G)``, validity first as 0/1, then
-the fields (a ``WheelBox``).  ``deliver_planes`` and ``insert_planes``
-below are the plain versions of the two kernels: the CPU path runs them,
-and the card path is held against them.
+the fields (a ``WheelBox``).  ``wheel_deliver`` and ``wheel_insert``
+below (one type at a time through ``deliver_planes`` and
+``insert_planes``) are the plain versions of the two kernels, which take
+every type of a step in one launch: the CPU path runs them, and the card
+path is held against them.
 """
 
 from __future__ import annotations
@@ -82,14 +84,12 @@ def insert_planes(w: torch.Tensor, ob: torch.Tensor, eff: torch.Tensor,
 
 # ---- the exchange over a whole wheel ------------------------------------
 
-def wheel_deliver(wheel: Wheel, deliver=deliver_planes
-                  ) -> Tuple[Mailboxes, Wheel]:
-    """Pop slot 0 as this step's inbox; rotate the wheel forward.
-    ``deliver`` runs one message type (the plain version by default, the
-    kernel's wrapper from ``ops/exchange.py``)."""
+def wheel_deliver(wheel: Wheel) -> Tuple[Mailboxes, Wheel]:
+    """Pop slot 0 as this step's inbox; rotate the wheel forward (the
+    plain version of ``ops/exchange.py``'s deliver kernel)."""
     inbox, rolled = {}, {}
     for name, box in wheel.items():
-        ib, rw = deliver(box.planes)
+        ib, rw = deliver_planes(box.planes)
         inbox[name] = unstack_box(ib, box.fields)
         rolled[name] = WheelBox(box.fields, rw)
     return inbox, rolled
@@ -104,22 +104,21 @@ def live_mask(fs, n: int):
     return no_self & fs["conn"] & alive
 
 
-def wheel_insert(wheel: Wheel, outbox: Mailboxes, fs, faults,
-                 insert=insert_planes) -> Wheel:
+def wheel_insert(wheel: Wheel, outbox: Mailboxes, fs, faults) -> Wheel:
     """Push this step's outbox into the wheel under the fault schedule
-    ``faults`` (from ``draw_edge_faults``).  ``insert`` runs one message
-    type, as ``deliver`` does in ``wheel_deliver``."""
+    ``faults`` (from ``draw_edge_faults``): the plain version of
+    ``ops/exchange.py``'s insert kernel, which forms ``eff`` itself and
+    reads the outbox planes where they lie."""
     new_wheel = {}
     for name in sorted(outbox.keys()):
         box, wbox = outbox[name], wheel[name]
         n = box["valid"].shape[0]
         f = faults[name]
-        # a protocol may send a view (a reply plane is often its inbox
-        # transposed); the kernel takes the fault planes contiguous
-        eff = (box["valid"] & live_mask(fs, n) & ~f["drop"]).contiguous()
+        eff = box["valid"] & live_mask(fs, n) & ~f["drop"]
         ob = stack_box(box, wbox.fields)
         new_wheel[name] = WheelBox(
-            wbox.fields, insert(wbox.planes, ob, eff, f["delay"], f["dup"]))
+            wbox.fields,
+            insert_planes(wbox.planes, ob, eff, f["delay"], f["dup"]))
     return new_wheel
 
 

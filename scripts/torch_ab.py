@@ -16,7 +16,14 @@ protocol's main path through ``simulate`` at 100,000 groups: the wall
 seconds of every run.
 
 With ``--kernels`` each process times, through its own wrappers, the
-closure kernel on 500,000 graphs of 80 nodes (seeded random graphs at
+exchange pair (``ops.exchange.wheel_deliver`` and ``wheel_insert``: the
+whole wrapper call over every message type of a step with every torch
+pass it makes, one call an event pair and four back to back, median of
+30) at every shape of ``chip_smoke.py``'s phase 2 (``EXCHANGE_SHAPES``:
+seeded random wheels, outboxes with every other plane a ``dst_major``
+view, fault planes; the launches a step and a sum of the outputs, so
+that the turns can be checked to agree), the closure kernel on 500,000
+graphs of 80 nodes (seeded random graphs at
 p = 0.02 and 0.1, and the graphs the EPaxos path hands the closure at
 step 30 of its fault-free and fuzzed runs at 100,000 groups, captured
 once by this process with B's code and handed over bit-packed under
@@ -39,6 +46,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+# the exchange shapes of chip_smoke.py's phase 2: label, protocol,
+# configuration, wheel depth (100,000 groups)
+WPAXOS_WAN = dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
+                  steal_threshold=3, locality=0.8)
+WPAXOS_GRID = dict(n_replicas=9, n_zones=3, n_slots=16, n_keys=32,
+                   n_objects=16, steal_threshold=4, locality=0.8)
+EXCHANGE_SHAPES = [
+    ("paxos_d1", "paxos", dict(n_replicas=5, n_slots=64), 1),
+    ("paxos_d3", "paxos", dict(n_replicas=5, n_slots=64), 3),
+    ("epaxos_d1", "epaxos", dict(n_replicas=5, n_slots=16, n_keys=4), 1),
+    ("epaxos_d3", "epaxos", dict(n_replicas=5, n_slots=16, n_keys=4), 3),
+    ("wpaxos_wan3z_d6", "wpaxos", WPAXOS_WAN, 6),
+    ("paxos_r3_d1", "paxos", dict(n_replicas=3, n_slots=16, n_keys=64), 1),
+    ("wpaxos_grid_d1", "wpaxos", WPAXOS_GRID, 1)]
 # each protocol's main path: configuration and depth (as chip_smoke.py)
 PATHS = {"paxos": (dict(n_replicas=5, n_slots=64), 104, "committed_slots"),
          "epaxos": (dict(n_replicas=5, n_slots=16, n_keys=4), 60,
@@ -68,7 +89,10 @@ import torch
 from paxi_tpu_torch.ops import closure as C
 from paxi_tpu_torch.ops import exchange as X
 from paxi_tpu_torch.parallel import make_mesh
-path_files, plane_specs = json.loads(sys.argv[1])
+from paxi_tpu_torch.protocols import sim_protocol
+from paxi_tpu_torch.sim import SimConfig
+from paxi_tpu_torch.sim import mailbox as MB
+path_files, plane_specs, exchange_shapes = json.loads(sys.argv[1])
 
 
 def median_ms(fn, reps=10, inner=1):
@@ -93,9 +117,61 @@ def unpack(path):
     return bits.reshape(-1).bool()
 
 
-out = {"closure": {}, "shift": {}}
+# one step's exchange inputs, seeded: wheel, outbox (every other plane a
+# dst_major view), fault state, fault planes
+def step_inputs(spec, r, d, g=100_000):
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def lay(x, i):
+        return x.transpose(0, 1).contiguous().transpose(0, 1) if i % 2 \
+            else x
+
+    wheel, outbox, faults = {}, {}, {}
+    for j, (name, fields) in enumerate(spec.items()):
+        w = ints((d, 1 + len(fields), r, r, g), 1000)
+        w[:, 0] = ints((d, r, r, g), 2)
+        wheel[name] = MB.WheelBox(tuple(fields), w)
+        outbox[name] = {"valid": lay(ints((r, r, g), 2).bool(), j)}
+        for i, f in enumerate(fields):
+            outbox[name][f] = lay(ints((r, r, g), 1000), i)
+        faults[name] = {"drop": ints((r, r, g), 5) == 0,
+                        "delay": ints((r, r, g), d) + 1,
+                        "dup": ints((r, r, g), 3) == 0}
+    fs = {"conn": ints((r, r, g), 6) != 0, "crashed": ints((r, g), 6) == 0}
+    return wheel, outbox, fs, faults
+
+
+out = {"exchange": {}, "closure": {}, "shift": {}}
 gen = torch.Generator(device="cuda")
 gen.manual_seed(7)
+for label, proto, cfg, d in exchange_shapes:
+    cfg = SimConfig(**cfg)
+    wheel, outbox, fs, faults = step_inputs(
+        sim_protocol(proto).mailbox_spec(cfg), cfg.n_replicas, d)
+    before = (X.wheel_deliver.launches, X.wheel_insert.launches)
+    inbox, rolled = X.wheel_deliver(wheel)
+    new = X.wheel_insert(wheel, outbox, fs, faults)
+    out["exchange"][label] = {
+        "launches_a_step": [X.wheel_deliver.launches - before[0],
+                            X.wheel_insert.launches - before[1]],
+        "out_sum": int(sum(int(b.planes.sum(dtype=torch.int64))
+                           for b in list(rolled.values())
+                           + list(new.values()))
+                       + sum(int(v.sum(dtype=torch.int64))
+                             for box in inbox.values()
+                             for v in box.values())),
+        "deliver_ms": median_ms(lambda: X.wheel_deliver(wheel), reps=30),
+        "insert_ms": median_ms(lambda: X.wheel_insert(wheel, outbox, fs,
+                                                      faults), reps=30),
+        "deliver_ms_four_calls": median_ms(lambda: X.wheel_deliver(wheel),
+                                           reps=30, inner=4),
+        "insert_ms_four_calls": median_ms(
+            lambda: X.wheel_insert(wheel, outbox, fs, faults), reps=30,
+            inner=4)}
+    del wheel, outbox, fs, faults, inbox, rolled, new
+    torch.cuda.empty_cache()
 graphs = {f"random_p{p}": lambda p=p: torch.rand(
     (500_000, 80, 80), generator=gen, device="cuda") < p
     for p in (0.02, 0.1)}
@@ -179,7 +255,8 @@ def main() -> int:
     ap.add_argument("--protocol", choices=sorted(PATHS), default="paxos")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the closure and shift kernels, not a path")
+                    help="time the exchange pair, the closure and the "
+                    "shift, not a path")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -189,7 +266,7 @@ def main() -> int:
         b_tree = args.b.resolve()
         child = KERNELS_CHILD
         spec = json.dumps([capture_path_graphs(b_tree),
-                           epaxos_plane_specs(b_tree)])
+                           epaxos_plane_specs(b_tree), EXCHANGE_SHAPES])
         label = {"mode": "kernels"}
     else:
         cfg, steps, count = PATHS[args.protocol]

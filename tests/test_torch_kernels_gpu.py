@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the two
-exchange kernels, the transitive closure and the ring shift (at world 1
+exchange kernels (one launch a step each, at every shape of the main
+paths, the outbox as protocols lay it and at a ragged G), the transitive
+closure and the ring shift (at world 1
 and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
 paths on the card against the same runs on the CPU, workload runs and the
 per-group paxos_pg kernel on the card against the CPU, and sharded runs
@@ -37,7 +39,31 @@ def card():
     return torch.device("cuda")
 
 
-def _blocks(card, d, g, seed, spec=SPEC, r=R):
+# how each outbox field lies, by its index (as protocols send them):
+# contiguous, ring.dst_major of a contiguous plane, broadcast over dst
+# (stride 0), and sliced one group into a wider plane (misaligned)
+FIELD_VIEWS = ("contiguous", "dst_major", "broadcast", "sliced")
+
+
+def _lay(x, how):
+    """``x (R, R, G)`` as a tensor that lies ``how``, equal in value (a
+    broadcast takes dst 0's values)."""
+    if how == "dst_major":
+        return x.transpose(0, 1).contiguous().transpose(0, 1)
+    if how == "broadcast":
+        return x[:, :1].expand(x.shape)
+    if how == "sliced":
+        wide = torch.zeros(x.shape[:-1] + (x.shape[-1] + 1,),
+                           dtype=x.dtype, device=x.device)
+        wide[..., 1:] = x
+        return wide[..., 1:]
+    return x
+
+
+def _step(card, d, g, seed, spec=SPEC, r=R, views=True):
+    """Seeded random inputs of one step's exchange on the card: the wheel,
+    the outbox (its planes laid as FIELD_VIEWS when ``views``), the fault
+    state and the fault planes."""
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
 
@@ -45,40 +71,72 @@ def _blocks(card, d, g, seed, spec=SPEC, r=R):
         return torch.randint(0, hi, shape, generator=gen, device=card,
                              dtype=torch.int32)
 
-    out = []
-    for fields in spec.values():
+    wheel, outbox, faults = {}, {}, {}
+    for j, (name, fields) in enumerate(spec.items()):
         F = 1 + len(fields)
         w = ints((d, F, r, r, g), 1000)
         w[:, 0] = ints((d, r, r, g), 2)
-        ob = ints((F, r, r, g), 1000)
-        ob[0] = ints((r, r, g), 2)
-        out.append((w, ob, ints((r, r, g), 2).bool(),
-                    ints((r, r, g), d) + 1, ints((r, r, g), 2).bool()))
-    return out
+        wheel[name] = pmb.WheelBox(tuple(fields), w)
+        valid = ints((r, r, g), 2).bool()
+        outbox[name] = {"valid": _lay(valid, ("dst_major", "sliced")[j % 2])
+                        if views else valid}
+        for i, f in enumerate(fields):
+            x = ints((r, r, g), 1000)
+            outbox[name][f] = _lay(x, FIELD_VIEWS[i % 4]) if views else x
+        faults[name] = {"drop": ints((r, r, g), 5) == 0,
+                        "delay": ints((r, r, g), d) + 1,
+                        "dup": ints((r, r, g), 3) == 0}
+    fs = {"conn": ints((r, r, g), 6) != 0, "crashed": ints((r, g), 6) == 0}
+    return wheel, outbox, fs, faults
+
+
+def _assert_step_equals_plain(wheel, outbox, fs, faults):
+    """One step's deliver and insert through the kernels (one launch
+    each) equal to the plain versions on the card."""
+    before = (px.wheel_deliver.launches, px.wheel_insert.launches)
+    inbox, rolled = px.wheel_deliver(wheel)
+    new = px.wheel_insert(wheel, outbox, fs, faults)
+    assert (px.wheel_deliver.launches, px.wheel_insert.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want_inbox, want_rolled = pmb.wheel_deliver(wheel)
+    want = pmb.wheel_insert(wheel, outbox, fs, faults)
+    torch.cuda.synchronize()
+    for name in wheel:
+        for k, v in want_inbox[name].items():
+            got = inbox[name][k]
+            assert got.dtype == v.dtype and torch.equal(got, v), (name, k)
+        assert torch.equal(rolled[name].planes, want_rolled[name].planes)
+    for name in want:
+        assert torch.equal(new[name].planes, want[name].planes), name
 
 
 @pytest.mark.parametrize("d", [1, 3])
 @pytest.mark.parametrize("size", GROUPS)
 def test_deliver_kernel_equals_plain(card, d, size):
-    for w, *_ in _blocks(card, d, GROUPS[size], d):
-        before = px.wheel_deliver.launches
-        got = px.deliver_launch(w)
-        assert px.wheel_deliver.launches == before + 1
-        want = pmb.deliver_planes(w)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    wheel, *_ = _step(card, d, GROUPS[size], d)
+    before = px.wheel_deliver.launches
+    inbox, rolled = px.wheel_deliver(wheel)
+    assert px.wheel_deliver.launches == before + 1
+    want_inbox, want_rolled = pmb.wheel_deliver(wheel)
+    torch.cuda.synchronize()
+    for name in wheel:
+        assert inbox[name]["valid"].dtype == torch.bool
+        for k, v in want_inbox[name].items():
+            assert torch.equal(inbox[name][k], v), (name, k)
+        assert torch.equal(rolled[name].planes, want_rolled[name].planes)
 
 
 @pytest.mark.parametrize("d", [1, 3])
 @pytest.mark.parametrize("size", GROUPS)
 def test_insert_kernel_equals_plain(card, d, size):
-    for block in _blocks(card, d, GROUPS[size], 10 + d):
-        before = px.wheel_insert.launches
-        got = px.insert_launch(*block)
-        assert px.wheel_insert.launches == before + 1
-        want = pmb.insert_planes(*block)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    wheel, outbox, fs, faults = _step(card, d, GROUPS[size], 10 + d)
+    before = px.wheel_insert.launches
+    new = px.wheel_insert(wheel, outbox, fs, faults)
+    assert px.wheel_insert.launches == before + 1
+    want = pmb.wheel_insert(wheel, outbox, fs, faults)
+    torch.cuda.synchronize()
+    for name in want:
+        assert torch.equal(new[name].planes, want[name].planes), name
 
 
 # the wpaxos mailbox under the wan3z scenario: 9 replicas, 5 message
@@ -92,14 +150,37 @@ WAN_CFG = dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
 def test_exchange_kernels_at_wheel_depth_six(card, size):
     from paxi_tpu_torch.protocols.wpaxos.sim import mailbox_spec as wspec
     spec = wspec(SimConfig(**WAN_CFG))
-    for block in _blocks(card, 6, GROUPS[size], 66, spec, WAN_R):
-        got = px.deliver_launch(block[0])
-        want = pmb.deliver_planes(block[0])
-        got_ins = px.insert_launch(*block)
-        want_ins = pmb.insert_planes(*block)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        assert torch.equal(got_ins, want_ins)
+    _assert_step_equals_plain(*_step(card, 6, GROUPS[size], 66, spec, WAN_R))
+
+
+# every shape the main paths give the exchange: (protocol, config, wheel
+# depth); at 100,000 groups, at a ragged 13 and at 8
+STEP_SHAPES = {
+    "paxos_d3": ("paxos", dict(n_replicas=5, n_slots=64), 3),
+    "epaxos_d1": ("epaxos", dict(n_replicas=5, n_slots=16, n_keys=4), 1),
+    "epaxos_d3": ("epaxos", dict(n_replicas=5, n_slots=16, n_keys=4), 3),
+    "wpaxos_wan3z_d6": ("wpaxos", WAN_CFG, 6),
+    "paxos_r3_d1": ("paxos", dict(n_replicas=3, n_slots=16, n_keys=64), 1),
+    "wpaxos_grid_d1": ("wpaxos", dict(n_replicas=9, n_zones=3, n_slots=16,
+                                      n_keys=32, n_objects=16,
+                                      steal_threshold=4, locality=0.8), 1)}
+
+
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("g", [8, 13, 100_000])
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_whole_step_kernels_equal_plain(card, shape, g, views):
+    """Both halves at every shape, the outbox as protocols lay it
+    (transposed, broadcast over dst, misaligned slices) or contiguous,
+    the scalar path at G = 13: one launch each, equal to the plain
+    versions."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    name, cfg, d = STEP_SHAPES[shape]
+    cfg = SimConfig(**cfg)
+    spec = sim_protocol(name).mailbox_spec(cfg)
+    _assert_step_equals_plain(*_step(card, d, g, 7, spec, cfg.n_replicas,
+                                     views))
+    torch.cuda.empty_cache()
 
 
 def test_scenario_capture_on_card_equals_cpu(card):
@@ -119,7 +200,7 @@ def test_scenario_capture_on_card_equals_cpu(card):
     px.reset_launches()
     on_card = make_recorded_run(proto, cfg, fuzz)(
         tr.PRNGKey(0), 16, 40)
-    assert px.wheel_deliver.launches == px.wheel_insert.launches == 40 * 5
+    assert px.wheel_deliver.launches == px.wheel_insert.launches == 40
     on_cpu = make_recorded_run(proto, cfg, fuzz, device="cpu")(
         tr.PRNGKey(0), 16, 40)
 
@@ -144,11 +225,25 @@ def test_scenario_capture_on_card_equals_cpu(card):
 
 
 def test_wrappers_reject_bad_arguments(card):
-    w, ob, eff, delay, dup = _blocks(card, 3, 8, 0)[0]
+    wheel, outbox, fs, faults = _step(card, 3, 8, 0)
+    w = wheel["p2a"]
     with pytest.raises(TypeError):
-        px.deliver_launch(w.to(torch.int64))
+        px.wheel_deliver({"p2a": pmb.WheelBox(w.fields,
+                                              w.planes.to(torch.int64))})
+    box = dict(outbox["p2a"], bal=outbox["p2a"]["bal"].to(torch.int64))
+    with pytest.raises(TypeError):
+        px.wheel_insert(wheel, dict(outbox, p2a=box), fs, faults)
+    # the group axis must have stride 1
+    box = dict(outbox["p2a"], bal=torch.zeros(
+        (8, R, R), dtype=torch.int32, device=card).permute(1, 2, 0))
+    with pytest.raises(ValueError, match="group stride"):
+        px.wheel_insert(wheel, dict(outbox, p2a=box), fs, faults)
+    box = dict(outbox["p2a"], bal=outbox["p2a"]["bal"][..., :4])
     with pytest.raises(ValueError):
-        px.insert_launch(w, ob[:, :, :, :4], eff, delay, dup)
+        px.wheel_insert(wheel, dict(outbox, p2a=box), fs, faults)
+    with pytest.raises(ValueError):
+        px.wheel_insert(wheel, outbox, {k: v.cpu() for k, v in fs.items()},
+                        faults)
 
 
 def test_main_path_goes_through_the_kernels(card):
@@ -158,7 +253,7 @@ def test_main_path_goes_through_the_kernels(card):
     px.reset_launches()
     res = simulate(sim_protocol("paxos"), cfg, 64, 12,
                    FuzzConfig(p_drop=0.1, max_delay=3), seed=0)
-    assert px.wheel_deliver.launches == px.wheel_insert.launches == 12 * 5
+    assert px.wheel_deliver.launches == px.wheel_insert.launches == 12
     assert int(res.violations) == 0
 
 
@@ -388,8 +483,7 @@ def test_card_equals_cpu(card, name, cfg):
         px.reset_launches()
         b = simulate(sim_protocol(name), SimConfig(**cfg), 64, 40, fuzz,
                      seed=2)
-        n_types = len(sim_protocol(name).mailbox_spec(SimConfig(**cfg)))
-        assert px.wheel_deliver.launches == 40 * n_types
+        assert px.wheel_deliver.launches == px.wheel_insert.launches == 40
         sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
         for k in sa:
             assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
@@ -442,14 +536,11 @@ def _card_vs_cpu(name, cfg, fuzz, groups=64, steps=40, seed=2):
     ("wpaxos", dict(n_replicas=9, n_zones=3, n_slots=16, n_keys=32,
                     n_objects=16, steal_threshold=4, locality=0.8))])
 def test_workload_run_card_equals_cpu(card, name, cfg, workload):
-    from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.sim import FuzzConfig
     from paxi_tpu_torch.workload import apply_workload, named_workload
     wcfg = apply_workload(SimConfig(**cfg), named_workload(workload))
-    n_types = len(sim_protocol(name).mailbox_spec(wcfg))
     for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3)):
-        assert _card_vs_cpu(name, wcfg, fuzz, steps=48) \
-            == (48 * n_types, 48 * n_types)
+        assert _card_vs_cpu(name, wcfg, fuzz, steps=48) == (48, 48)
 
 
 @pytest.mark.parametrize("workload", [None, "zipf99", "flash"])
