@@ -78,7 +78,20 @@ non-zero exit code and no result line:
    run of 257 groups and a sharded pinned replay of a paxos_pg capture,
    each against its one-device run on the card; phase 2 also times the
    exchange kernels at the two new mailbox shapes (3 and 9 replicas);
-8. the kernel summary line, the ``nvidia-smi`` line, and last the result
+8. the protocols of slice 8 (``bench_all.py``'s protocol rows at 100,000
+   groups): ``abd_register``, ``chain_pipeline``, ``wankeeper_zones``,
+   ``wankeeper_wan3z_geo`` (with its zone-local and cross-zone latency),
+   ``blockchain_forks`` (under bench_all's FUZZ) and ``bpaxos_grid``, and
+   kpaxos and dynamo at the hunt's configurations, each read with its own
+   launch counts and held to its count (``PROTO_ROWS``); the seeded twins:
+   ``wankeeper_nofloor`` at the hunt's BUG_DEMO case captured at 100,000
+   groups x 80 steps (a violating group found, one replay equal to the
+   capture) and ``bpaxos_noread`` at 100,000 groups (it must violate; card
+   against CPU at 16 groups); every new kernel and twin card against
+   CPU at 64 groups x 30 steps, fault-free and fuzzed; phase 2 also checks
+   and times the exchange at the wankeeper (6 replicas, 9 types), bpaxos
+   (7, 5 types) and blockchain (5, one type, wheel depth 2) mailboxes;
+9. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero when CUDA
@@ -100,8 +113,9 @@ DEVICE = "cuda"
 SEED = 0
 GROUPS, REPLICAS = 100_000, 5
 SHARD_WORLD = 4                      # ranks sharing the card in phase 6
-# the card-against-CPU runs (phases 3 and 6); 60 steps until phase 5 came
-SMALL_GROUPS, SMALL_STEPS = 256, 30
+# the card-against-CPU runs (phases 3 and 6); 60 steps until phase 5
+# came, 30 until phase 8 did
+SMALL_GROUPS, SMALL_STEPS = 256, 20
 WARMUP_STEPS = 8                     # the main paths' warm-up run
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 # H100 SXM int32 lanes: 64 a clock an SM, 132 SMs at 1.98 GHz (NVIDIA's
@@ -127,13 +141,16 @@ PATHS = {
                    count="executed", expect=lambda steps: 74 * GROUPS),
 }
 # the new kernels' single-card runs: bench_all.py's configurations at the
-# BASELINE.json scale, and what a fault-free run of seed SEED must commit
+# BASELINE.json scale, and what a run of seed SEED must count.  A row
+# names its protocol (default: its key), its schedule (default
+# fault-free) and, in ``expect``, each count it is held to; the rate is
+# the first count a second
 NEW_PATHS = {
     # fault-free sdpaxos commits one slot a group a step from step 4 on
     "sdpaxos": dict(cfg=dict(n_replicas=5, n_slots=32, n_keys=16),
                     steps=80, line="sdpaxos_path",
                     metric="committed_sdpaxos_slots_per_sec",
-                    expect=76 * GROUPS),
+                    expect={"committed_slots": 76 * GROUPS}),
     # wpaxos draws its demand and steals from the seed, so its count is
     # that seed's: the card equals the CPU on the same seed (phases 3 and
     # 6) and the CPU the JAX package (tests/test_torch_wpaxos_sim.py)
@@ -141,8 +158,76 @@ NEW_PATHS = {
                             n_slots=16, steal_threshold=3, locality=0.8),
                    steps=60, line="wpaxos_path",
                    metric="committed_wpaxos_slots_per_sec",
-                   expect=18_041_564),
+                   expect={"committed_slots": 18_041_564}),
 }
+# phase 8: bench_all.py's protocol rows (``_cfgs``) at GROUPS groups, and
+# kpaxos and dynamo at the hunt's configurations (paxi_tpu/hunt/cases.py).
+# A count that depends on the seed's draws is the JAX package's on the
+# CPU at the same shape and seed (``scripts/reference_counts.py ROW``);
+# the others hold for every group alike
+WAN_KEEPER_CFG = dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
+                      locality=0.8)
+PROTO_ROWS = {
+    # fault-free abd draws nothing: a replica completes an op every 4
+    # steps (query, reply, store, ack) from step 0
+    "abd_register": dict(protocol="abd",
+                         cfg=dict(n_replicas=5, n_keys=16), steps=60,
+                         line="protocol_path", metric="abd_ops_per_sec",
+                         expect={"ops_done": 5 * ((60 - 1) // 4) * GROUPS}),
+    # the head commits one write a step from step 4 on
+    "chain_pipeline": dict(protocol="chain",
+                           cfg=dict(n_replicas=3, n_slots=64), steps=110,
+                           line="protocol_path",
+                           metric="chain_slots_per_sec",
+                           expect={"committed_slots": (110 - 4) * GROUPS}),
+    # three static leaders, one slot a partition a step from step 2 on
+    "kpaxos_path": dict(protocol="kpaxos",
+                        cfg=dict(n_replicas=3, n_slots=32), steps=104,
+                        line="protocol_path", metric="kpaxos_slots_per_sec",
+                        expect={"committed_slots": 3 * (104 - 2) * GROUPS}),
+    # every replica writes once a step inside the 40-step write window
+    "dynamo_path": dict(protocol="dynamo",
+                        cfg=dict(n_replicas=5, n_keys=8, n_slots=40),
+                        steps=60, line="protocol_path",
+                        metric="dynamo_writes_per_sec",
+                        expect={"writes": 5 * 40 * GROUPS}),
+    # the demand is drawn from the seed: the JAX package's count
+    "wankeeper_zones": dict(protocol="wankeeper",
+                            cfg=dict(n_replicas=6, n_zones=2, n_objects=4,
+                                     n_slots=16, locality=0.8), steps=80,
+                            line="protocol_path",
+                            metric="wankeeper_writes_per_sec",
+                            expect={"committed_slots": 9_059_250}),
+    "wankeeper_wan3z_geo": dict(protocol="wankeeper", cfg=WAN_KEEPER_CFG,
+                                steps=100, schedule="wan3z",
+                                line="protocol_path", split=True,
+                                metric="wankeeper_writes_per_sec",
+                                expect={"committed_slots": 9_525_400}),
+    # mining and the fault schedule are drawn from the seed
+    "blockchain_forks": dict(protocol="blockchain",
+                             cfg=dict(n_replicas=5, n_slots=32,
+                                      steal_threshold=4), steps=200,
+                             schedule="bench_fuzz", line="protocol_path",
+                             metric="blockchain_blocks_per_sec",
+                             expect={"committed_slots": 4_068_791}),
+    # two proxies, each a slot a step (2 * steps - 5 a group); the batch
+    # sizes, hence the commands, are drawn from the seed
+    "bpaxos_grid": dict(protocol="bpaxos",
+                        cfg=dict(n_replicas=7, n_slots=32), steps=104,
+                        line="protocol_path", metric="bpaxos_cmds_per_sec",
+                        expect={"committed_cmds": 50_749_712,
+                                "committed_slots": (2 * 104 - 5) * GROUPS}),
+}
+# bench_all.py's FUZZ schedule (blockchain_forks)
+BENCH_FUZZ_ARGS = dict(p_drop=0.1, p_dup=0.05, max_delay=2, p_partition=0.1,
+                       window=16)
+# the seeded twins (paxi_tpu/hunt/cases.py BUG_DEMO and DEMO_CASES), under
+# DROP, at GROUPS x TWIN_STEPS; card against CPU at TWIN_SMALL_GROUPS
+TWIN_CFGS = {"wankeeper_nofloor": dict(n_replicas=6, n_zones=2, n_objects=2,
+                                       n_slots=16, locality=0.1),
+             "bpaxos_noread": dict(n_replicas=7, n_slots=16)}
+TWIN_DROP_ARGS = dict(p_drop=0.25, max_delay=2)
+TWIN_STEPS, TWIN_SMALL_GROUPS = 80, 16
 # phase 6's sharded card-against-CPU runs
 SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
                   "sdpaxos": NEW_PATHS["sdpaxos"]["cfg"],
@@ -541,19 +626,20 @@ def compare_runs(a, b, label: str) -> None:
              (b.state, b.metrics, b.violations), label)
 
 
-def card_vs_cpu_phase(path: str, proto, cfg, count: str):
+def card_vs_cpu_phase(path: str, proto, cfg, count: str,
+                      groups: int = SMALL_GROUPS, steps: int = SMALL_STEPS):
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, simulate
     for label, fuzz in (("fault_free", FAULT_FREE),
                         ("fuzz", FuzzConfig(**FUZZ_ARGS))):
         t0 = time.perf_counter()
-        on_cpu = simulate(proto, cfg, SMALL_GROUPS, SMALL_STEPS, fuzz,
-                          seed=SEED, device="cpu")
-        on_card = simulate(proto, cfg, SMALL_GROUPS, SMALL_STEPS, fuzz,
-                           seed=SEED, device=DEVICE)
+        on_cpu = simulate(proto, cfg, groups, steps, fuzz, seed=SEED,
+                          device="cpu")
+        on_card = simulate(proto, cfg, groups, steps, fuzz, seed=SEED,
+                           device=DEVICE)
         compare_runs(on_cpu, on_card, f"{path} {label}")
         log("card_vs_cpu " + json.dumps({
-            "protocol": path, "schedule": label, "groups": SMALL_GROUPS,
-            "steps": SMALL_STEPS, "equal": True,
+            "protocol": path, "schedule": label, "groups": groups,
+            "steps": steps, "equal": True,
             count: int(on_card.metrics[count]),
             "violations": int(on_card.violations),
             "seconds": time.perf_counter() - t0}))
@@ -677,9 +763,11 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
             fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz,
                                            cfg.n_replicas)
             faults = mb.draw_edge_faults(k_ins, outbox, fuzz)
+            sent = outbox
+            outbox, faults = mb.full_edges(outbox, faults, GROUPS)
             wv = ({n: b.planes[:, 0] != 0 for n, b in wheel.items()}
                   if fuzz.wheel > 1 else None)
-            step_counts(inbox, outbox, faults, fs, cfg.n_replicas,
+            step_counts(inbox, sent, faults, fs, cfg.n_replicas,
                         wheel_valid=wv)
             ev[3].record()
             wheel = ops.wheel_insert(wheel, outbox, fs, faults)
@@ -704,44 +792,67 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
     log("step_split " + json.dumps(row))
 
 
-def new_path_run(path: str, smi: str):
-    """A new kernel's single-card run at 100,000 groups, fault-free, with
-    its rate; its committed count and launch counts (read around it) must
-    be the expected ones."""
+def schedule_of(name: str):
+    """A row's schedule: ``fault_free``, ``wan3z`` (the zone-latency
+    matrix alone) or ``bench_fuzz`` (bench_all.py's FUZZ)."""
+    from paxi_tpu_torch.scenarios import NAMED, with_scenario
+    from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig
+    return {"fault_free": FAULT_FREE,
+            "wan3z": with_scenario(FAULT_FREE, NAMED["wan3z"]),
+            "bench_fuzz": FuzzConfig(**BENCH_FUZZ_ARGS)}[name]
+
+
+# metrics a row prints beside its counts where its protocol has them
+ROW_EXTRAS = ("steals", "commands_proposed", "transfers", "root_execute",
+              "recoveries", "reads_done", "tail_applied", "mined", "reorgs",
+              "converged", "converged_keys")
+
+
+def new_path_run(key: str, smi: str, paths=None):
+    """A new kernel's single-card run at 100,000 groups under its row's
+    schedule, with its rate; each count and the launch counts (read around
+    the run) must be the expected ones."""
     from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.scenarios import latency_split
     from paxi_tpu_torch.sim import SimConfig, simulate
 
-    spec = NEW_PATHS[path]
-    proto, cfg = sim_protocol(path), SimConfig(**spec["cfg"])
+    spec = (NEW_PATHS if paths is None else paths)[key]
+    name = spec.get("protocol", key)
+    sched = spec.get("schedule", "fault_free")
+    proto, cfg = sim_protocol(name), SimConfig(**spec["cfg"])
+    fuzz = schedule_of(sched)
     steps = spec["steps"]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    res = simulate(proto, cfg, GROUPS, steps, seed=SEED, device=DEVICE)
+    res = simulate(proto, cfg, GROUPS, steps, fuzz, seed=SEED, device=DEVICE)
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
-    done = int(res.metrics["committed_slots"])
-    row = {"schedule": "fault_free", "metric": spec["metric"],
-           spec["metric"]: done / wall_s, "committed_slots": done,
-           "wall_s": wall_s, "invariant_violations": int(res.violations),
+    metrics = {k: int(v) for k, v in res.metrics.items()}
+    counts = {k: metrics[k] for k in spec["expect"]}
+    row = {"row": key, "protocol": name, "schedule": sched,
+           "metric": spec["metric"],
+           spec["metric"]: next(iter(counts.values())) / wall_s, **counts,
+           "wall_s": wall_s, "ms_per_step": wall_s / steps * 1e3,
+           "invariant_violations": int(res.violations),
            "inscan_violations": res.inscan_violations,
            "commit_latency": res.latency_summary(),
            "groups": GROUPS, "steps": steps, "config": spec["cfg"],
-           "device": smi, "kernels": launches,
+           "wheel_depth": fuzz.wheel, "device": smi, "kernels": launches,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           **{k: int(v) for k, v in res.metrics.items()
-              if k in ("steals", "commands_proposed")}}
+           **{k: metrics[k] for k in ROW_EXTRAS if k in metrics}}
+    if spec.get("split"):
+        row.update(latency_split(metrics))
     log(spec["line"] + " " + json.dumps(row))
-    if int(res.violations) != 0 or res.inscan_violations != 0:
-        fail(f"{path}: safety violations")
-    if done != spec["expect"]:
-        fail(f"{path}: committed {done}, expected {spec['expect']}")
-    want_launches = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
-                     "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
-                     "transitive_closure": 0, "make_remote_lane_shift": 0}
-    if launches != want_launches:
-        fail(f"{path}: kernel launches {launches}, expected "
-             f"{want_launches}")
+    if int(res.violations) != 0 or (res.inscan_violations or 0) != 0:
+        fail(f"{key}: safety violations")
+    for k, want in spec["expect"].items():
+        if counts[k] != want:
+            fail(f"{key}: {k} {counts[k]}, expected {want}")
+    if spec.get("split") and not ("commit_lat_local_rounds" in row
+                                  and "commit_lat_cross_rounds" in row):
+        fail(f"{key}: no zone-local or cross-zone latency")
+    expect_launches(key, launches, steps)
     return row
 
 
@@ -1335,6 +1446,116 @@ def workload_sharded_lines(pg, card_small, pg_ref, smi: str):
         "device": smi}))
 
 
+# ---- phase 8: the protocols of slice 8 and their seeded twins ----------
+
+def twin_phase(smi: str):
+    """The seeded twins at GROUPS groups under DROP: ``wankeeper_nofloor``
+    captured (every group's schedule recorded on the card; a violating
+    group must be found) and replayed once to the capture's hash,
+    counters and histogram; ``bpaxos_noread`` run, which must violate;
+    noread card against CPU at TWIN_SMALL_GROUPS.  Returns the
+    capture's and the noread run's launch counts."""
+    from paxi_tpu_torch import trace as T
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig, simulate
+
+    fuzz = FuzzConfig(**TWIN_DROP_ARGS)
+    proto = sim_protocol("wankeeper_nofloor")
+    cfg = SimConfig(**TWIN_CFGS["wankeeper_nofloor"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr_ = T.capture(proto, cfg, fuzz, SEED, GROUPS, TWIN_STEPS,
+                    device=DEVICE)
+    capture_s = time.perf_counter() - t0
+    capture_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tr_ is None:
+        fail("wankeeper_nofloor under DROP found no violating group")
+    expect_launches("nofloor capture", capture_launches, TWIN_STEPS)
+    m = tr_.meta
+    sched_bytes = sum(v.nbytes for v in (tr_.sched["conn"],
+                                         tr_.sched["crashed"]))
+    sched_bytes += sum(v.nbytes for f in tr_.sched["faults"].values()
+                       for v in f.values())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = T.replay(tr_, device=DEVICE)
+    replay_s = time.perf_counter() - t0
+    expect_launches("nofloor replay", launch_counts(), TWIN_STEPS)
+    for what, got, want in (
+            ("state hash", r.state_hash, m["capture_state_hash"]),
+            ("counters", r.counters, m["capture_counters"]),
+            ("latency histogram", r.lat_hist, m.get("capture_lat_hist")),
+            ("violations", r.violations, m["group_violations"])):
+        if got != want:
+            fail(f"nofloor replay: {what} {got} != capture's {want}")
+    log("twin_path " + json.dumps({
+        "protocol": "wankeeper_nofloor", "schedule": TWIN_DROP_ARGS,
+        "groups": GROUPS, "steps": TWIN_STEPS,
+        "config": TWIN_CFGS["wankeeper_nofloor"], "group": m["group"],
+        "group_violations": m["group_violations"],
+        "first_violation_step": m["first_violation_step"],
+        "n_events": tr_.n_events(), "capture_wall_s": capture_s,
+        "replay_wall_s": replay_s, "replay_equal_to_capture": True,
+        "recorded_schedule_bytes": sched_bytes * GROUPS,
+        "peak_memory_bytes": peak, "kernels": capture_launches,
+        "state_hash": r.state_hash, "device": smi}))
+    del tr_, r
+    torch.cuda.empty_cache()
+
+    proto = sim_protocol("bpaxos_noread")
+    cfg = SimConfig(**TWIN_CFGS["bpaxos_noread"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simulate(proto, cfg, GROUPS, TWIN_STEPS, fuzz, seed=SEED,
+                   device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    noread_launches = launch_counts()
+    log("twin_path " + json.dumps({
+        "protocol": "bpaxos_noread", "schedule": TWIN_DROP_ARGS,
+        "groups": GROUPS, "steps": TWIN_STEPS,
+        "config": TWIN_CFGS["bpaxos_noread"],
+        "invariant_violations": int(res.violations),
+        "committed_slots": int(res.metrics["committed_slots"]),
+        "recoveries": int(res.metrics["recoveries"]), "wall_s": wall_s,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "kernels": noread_launches, "device": smi}))
+    if not int(res.violations) > 0:
+        fail("bpaxos_noread did not violate under DROP")
+    expect_launches("noread run", noread_launches, TWIN_STEPS)
+    del res
+
+    t0 = time.perf_counter()
+    runs = [simulate(proto, cfg, TWIN_SMALL_GROUPS, TWIN_STEPS, fuzz,
+                     seed=SEED, device=d) for d in ("cpu", DEVICE)]
+    compare_runs(*runs, "bpaxos_noread twin")
+    log("card_vs_cpu " + json.dumps({
+        "protocol": "bpaxos_noread", "schedule": "drop",
+        "groups": TWIN_SMALL_GROUPS, "steps": TWIN_STEPS, "equal": True,
+        "violations": int(runs[1].violations),
+        "seconds": time.perf_counter() - t0}))
+    if not int(runs[1].violations) > 0:
+        fail("bpaxos_noread did not violate at 16 groups")
+    return capture_launches, noread_launches
+
+
+def slice8_small_phase():
+    """Every slice-8 kernel and twin, fault-free and fuzzed, card against
+    CPU at WL_SMALL_GROUPS x WL_SMALL_STEPS on every plane."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig
+    cases = {}
+    for r in PROTO_ROWS.values():          # a protocol's first row
+        cases.setdefault(r["protocol"], r["cfg"])
+    cases.update(TWIN_CFGS)
+    for name, cfg_kw in cases.items():
+        card_vs_cpu_phase(name, sim_protocol(name), SimConfig(**cfg_kw),
+                          "committed_slots", WL_SMALL_GROUPS,
+                          WL_SMALL_STEPS)
+
+
 # ---- phase 6: four ranks on the one card ---------------------------------
 
 def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
@@ -1609,6 +1830,16 @@ def main() -> int:
         xrows[f"{p}_workload"] = exchange_phase(
             p, sim_protocol(p).mailbox_spec(wcfg), depths=(1,),
             replicas=wcfg.n_replicas)
+    # and at phase 8's three new mailbox shapes (blockchain's under
+    # bench_all's FUZZ, a two-slot wheel)
+    for row in ("wankeeper_zones", "bpaxos_grid", "blockchain_forks"):
+        spec = PROTO_ROWS[row]
+        rcfg = SimConfig(**spec["cfg"])
+        xrows[spec["protocol"]] = exchange_phase(
+            spec["protocol"],
+            sim_protocol(spec["protocol"]).mailbox_spec(rcfg),
+            depths=(schedule_of(spec.get("schedule", "fault_free")).wheel,),
+            replicas=rcfg.n_replicas)
     crows = closure_phase()
     prows = closure_path_phase()
     srow = shift_world1_phase()
@@ -1616,9 +1847,9 @@ def main() -> int:
     # 3. the card against the CPU
     for p in PATHS:
         card_vs_cpu_phase(p, protos[p], cfgs[p], PATHS[p]["count"])
-    for p in NEW_PATHS:
-        card_vs_cpu_phase(p, sim_protocol(p), SimConfig(**NEW_PATHS[p]["cfg"]),
-                          "committed_slots")
+    for p, spec in NEW_PATHS.items():
+        card_vs_cpu_phase(p, sim_protocol(spec.get("protocol", p)),
+                          SimConfig(**spec["cfg"]), "committed_slots")
 
     # 4. the main paths, fault-free then fuzzed, and a step's split
     free, fuzzed = {}, {}
@@ -1676,11 +1907,27 @@ def main() -> int:
     shift4, north, pg_sharded, card_small = four_ranks_phase(smi, pg_ref[0])
     t6 = time.perf_counter() - t6
     workload_sharded_lines(pg_sharded, card_small, pg_ref, smi)
+
+    # 8. the protocols of slice 8: bench_all's rows, the twins, card
+    # against CPU
+    t8 = time.perf_counter()
+    proto_rows = {k: new_path_run(k, smi, PROTO_ROWS) for k in PROTO_ROWS}
+    for row in ("wankeeper_zones", "wankeeper_wan3z_geo", "bpaxos_grid"):
+        spec = PROTO_ROWS[row]
+        step_split_phase(row, sim_protocol(spec["protocol"]),
+                         SimConfig(**spec["cfg"]),
+                         schedule_of(spec.get("schedule", "fault_free")),
+                         spec.get("schedule", "fault_free"))
+    torch.cuda.empty_cache()
+    nofloor_launches, noread_launches = twin_phase(smi)
+    slice8_small_phase()
+    t8 = time.perf_counter() - t8
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
+        "slice8_protocols": t8,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 7. the kernel summary: launches from the epaxos main path (the one
+    # 9. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
@@ -1689,7 +1936,10 @@ def main() -> int:
                    "witness_capture": witness_launches[k],
                    "scenario_path": scenario["kernels"][k],
                    **{f"workload_{p}_{wl}": r["kernels"][k]
-                      for (p, wl), r in wl_rows.items()}}
+                      for (p, wl), r in wl_rows.items()},
+                   **{row: r["kernels"][k] for row, r in proto_rows.items()},
+                   "nofloor_capture": nofloor_launches[k],
+                   "noread_run": noread_launches[k]}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
@@ -1714,7 +1964,10 @@ def main() -> int:
                                ("epaxos", "epaxos", 3),
                                ("wpaxos_wan3z", "wpaxos_wan3z", 6),
                                ("paxos_r3", "paxos_workload", 1),
-                               ("wpaxos_grid", "wpaxos_workload", 1))}})
+                               ("wpaxos_grid", "wpaxos_workload", 1),
+                               ("wankeeper", "wankeeper", 1),
+                               ("bpaxos", "bpaxos", 1),
+                               ("blockchain", "blockchain", 2))}})
     row = crows[0]              # main-path shape, the sparser density
     kernels.append({
         "name": "transitive_closure", "route": "cuda",

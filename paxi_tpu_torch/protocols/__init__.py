@@ -1,8 +1,13 @@
 """Protocol plugin registry for the torch sim runtime: a name resolves to
-a ``SimProtocol``.  The lane-major ``paxos``, ``epaxos``, ``sdpaxos`` and
-``wpaxos`` kernels are ported so far, with ``wpaxos_thinq1``, the seeded
-thin-read-quorum twin of ``wpaxos``, and ``paxos_pg``, the per-group
-(group axis leading) Multi-Paxos kernel.
+a ``SimProtocol``, as in the JAX package's registry (``"module:ATTR"``
+picks a symbol other than ``PROTOCOL``).  Ported: the lane-major
+``paxos``, ``epaxos``, ``sdpaxos``, ``wpaxos``, ``wankeeper``, ``bpaxos``,
+``chain``, ``kpaxos``, ``abd``, ``dynamo`` and ``blockchain`` kernels;
+``paxos_pg``, the per-group (group axis leading) Multi-Paxos kernel; and
+three seeded-bug twins, which violate by design: ``wpaxos_thinq1`` (a
+phase-1 grid quorum one zone thin), ``wankeeper_nofloor`` (no granted-
+version floor) and ``bpaxos_noread`` (takeover without the column read).
+``switchpaxos`` and the trace and scenario demo kernels are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +23,16 @@ _SIM_MODULES = {
     "sdpaxos": "paxi_tpu_torch.protocols.sdpaxos.sim",
     "wpaxos": "paxi_tpu_torch.protocols.wpaxos.sim",
     "wpaxos_thinq1": "paxi_tpu_torch.protocols.wpaxos.sim:PROTOCOL_THINQ1",
+    "wankeeper": "paxi_tpu_torch.protocols.wankeeper.sim",
+    "wankeeper_nofloor":
+        "paxi_tpu_torch.protocols.wankeeper.sim:PROTOCOL_NOFLOOR",
+    "bpaxos": "paxi_tpu_torch.protocols.bpaxos.sim",
+    "bpaxos_noread": "paxi_tpu_torch.protocols.bpaxos.sim:PROTOCOL_NOREAD",
+    "chain": "paxi_tpu_torch.protocols.chain.sim",
+    "kpaxos": "paxi_tpu_torch.protocols.kpaxos.sim",
+    "abd": "paxi_tpu_torch.protocols.abd.sim",
+    "dynamo": "paxi_tpu_torch.protocols.dynamo.sim",
+    "blockchain": "paxi_tpu_torch.protocols.blockchain.sim",
 }
 
 

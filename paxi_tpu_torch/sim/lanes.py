@@ -9,6 +9,7 @@ draws.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -17,6 +18,23 @@ from paxi_tpu_torch import random as tr
 from paxi_tpu_torch.scenarios.schedule import forced_crash
 from paxi_tpu_torch.sim.mailbox import Wheel, WheelBox
 from paxi_tpu_torch.sim.types import FuzzConfig, resolve_device
+
+
+@functools.lru_cache(maxsize=64)
+def iota(n: int, device) -> torch.Tensor:
+    """``arange(n)`` as int32 on ``device``, built once a size and device
+    (a normal tensor, so a step may use it in and out of inference
+    mode)."""
+    with torch.inference_mode(False):
+        return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def i32sum(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``torch.sum`` over ``dim`` (every axis when None) in int32, as the
+    reference sums (torch sums int32 and bool to int64)."""
+    if dim is None:
+        return torch.sum(x, dtype=torch.int32)
+    return torch.sum(x, dim=dim, dtype=torch.int32)
 
 
 def group_sum(x: torch.Tensor) -> torch.Tensor:

@@ -122,6 +122,27 @@ def wheel_insert(wheel: Wheel, outbox: Mailboxes, fs, faults) -> Wheel:
     return new_wheel
 
 
+def full_edges(outbox: Mailboxes, faults, groups: int):
+    """Every type's validity and fault planes at the full ``(src, dst, G)``
+    edge shape.  A validity plane that is the same for every group
+    (``(src, dst, 1)``: chain's ack) has its faults drawn at its own
+    shape, as in the reference; here it and its fault planes become
+    planes of their own over the groups (the exchange kernels read groups
+    at stride 1).  Other types pass through untouched."""
+    narrow = [n for n, box in outbox.items()
+              if box["valid"].shape[-1] != groups]
+    if not narrow:
+        return outbox, faults
+    outbox, faults = dict(outbox), dict(faults)
+    for name in narrow:
+        box_shape = outbox[name]["valid"].shape[:-1] + (groups,)
+        outbox[name] = dict(outbox[name], valid=outbox[name]["valid"]
+                            .expand(box_shape).contiguous())
+        faults[name] = {k: v.expand(box_shape).contiguous()
+                        for k, v in faults[name].items()}
+    return outbox, faults
+
+
 @functools.lru_cache(maxsize=16)
 def _delay_plane(scn, n: int, device) -> torch.Tensor:
     """A scenario's (src, dst, 1) int32 latency plane on ``device``, built

@@ -216,13 +216,17 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
     new_state, outbox = proto.step(state, inbox, StepCtx(k_step, t, cfg))
     fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz, cfg.n_replicas)
     faults = mb.draw_edge_faults(k_ins, outbox, fuzz)
+    # the reference counts a send the same for every group (chain's ack,
+    # ``(src, dst, 1)``) once, at its own shape
+    sent_box = outbox
+    outbox, faults = mb.full_edges(outbox, faults, fs["conn"].shape[-1])
     if sched_t is not None:
         fs, faults = _pin(fs, faults, sched_t, pin_on, lead=False)
     # counted before the insert, so the pre-insert wheel exposes delay
     # collisions; a one-slot wheel cannot collide and is not read
     wheel_valid = ({n: b.planes[:, 0] != 0 for n, b in wheel.items()}
                    if fuzz.wheel > 1 else None)
-    counts = step_counts(inbox, outbox, faults, fs, cfg.n_replicas,
+    counts = step_counts(inbox, sent_box, faults, fs, cfg.n_replicas,
                          wheel_valid=wheel_valid)
     wheel = ops.wheel_insert(wheel, outbox, fs, faults)
     if pin_on is not None:

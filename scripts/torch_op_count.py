@@ -4,6 +4,7 @@ dispatches (each one a kernel launch on the card), on the CPU.
 
     python3 scripts/torch_op_count.py [--protocol wpaxos_thinq1]
         [--groups 16] [--warm 5] [--workload zipf99] [--config workload]
+    python3 scripts/torch_op_count.py --row wankeeper_zones [--groups 16]
 
 Runs ``--warm`` rounds of the hunt's ``wpaxos_thinq1`` case (9 replicas
 in 3 zones, 4 objects, 16 slots) or of another protocol at that
@@ -13,7 +14,9 @@ inside the wan3z zone-latency matrix) and fault-free, and prints one JSON
 line.  ``--workload NAME`` runs the named workload on ``bench_all.py``'s
 workload configuration of the protocol instead (paxos and paxos_pg: 3
 replicas, 16 slots, 64 keys; wpaxos: the 3 x 3 grid, 16 objects over 32
-keys); ``--config workload`` takes that configuration without one.  The count is the same at any group count.  On the card the
+keys); ``--config workload`` takes that configuration without one.
+``--row NAME`` counts a round of one of ``chip_smoke.py``'s phase-8 rows
+(``PROTO_ROWS``: bench_all.py's protocol rows) under its own schedule.  The count is the same at any group count.  On the card the
 lane-major exchange launches its two kernels where the CPU runs their
 plain versions' operators (a few dozen a message type), so the card
 dispatches slightly fewer a step.
@@ -76,6 +79,9 @@ def main() -> int:
     ap.add_argument("--config", choices=("witness", "workload"),
                     default=None, help="the geometry (default: workload "
                     "with --workload, else witness)")
+    ap.add_argument("--row", default=None,
+                    help="a chip_smoke.py PROTO_ROWS row, under its own "
+                    "schedule")
     args = ap.parse_args()
 
     from paxi_tpu_torch.protocols import sim_protocol
@@ -83,6 +89,18 @@ def main() -> int:
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig
     from paxi_tpu_torch.workload import apply_workload, named_workload
 
+    if args.row:
+        import chip_smoke
+        spec = chip_smoke.PROTO_ROWS[args.row]
+        sched = spec.get("schedule", "fault_free")
+        print(json.dumps({
+            "row": args.row, "protocol": spec["protocol"],
+            "groups": args.groups, "config": spec["cfg"],
+            "schedule": sched, "device": "cpu (a count, not a time)",
+            "ops_a_step": ops_a_step(
+                sim_protocol(spec["protocol"]), SimConfig(**spec["cfg"]),
+                chip_smoke.schedule_of(sched), args.groups, args.warm)}))
+        return 0
     cfg_kw = WITNESS_CFG
     if (args.config or ("workload" if args.workload else "witness")) \
             == "workload":

@@ -377,3 +377,61 @@ def test_whole_step_matches_pallas_and_dense(case):
             _jax(faults))
     assert_tree_equal(jx.wheel_insert(*args), got, "pallas insert")
     assert_tree_equal(jmb.wheel_insert(*args), got, "dense insert")
+
+
+# ---- a real step's outbox of each protocol ported in slice 8 ---------------
+
+SLICE8 = {
+    "wankeeper": dict(n_replicas=6, n_zones=2, n_objects=4, n_slots=16,
+                      locality=0.8),
+    "wankeeper_nofloor": dict(n_replicas=6, n_zones=2, n_objects=2,
+                              n_slots=16, locality=0.1),
+    "bpaxos": dict(n_replicas=7, n_slots=16),
+    "bpaxos_noread": dict(n_replicas=7, n_slots=16),
+    "chain": dict(n_replicas=3, n_slots=32),
+    "kpaxos": dict(n_replicas=3, n_slots=32),
+    "abd": dict(n_replicas=5, n_keys=16),
+    "dynamo": dict(n_replicas=5, n_keys=8, n_slots=40),
+    "blockchain": dict(n_replicas=5, n_slots=32, steal_threshold=4),
+}
+
+
+@pytest.mark.parametrize("g", [13, 16])
+@pytest.mark.parametrize("name", SLICE8)
+def test_real_outbox_goes_through_the_tables(name, g):
+    """Step 6 of a run under drops and a two-slot wheel, as the runner
+    hands it to the exchange (``mailbox.full_edges`` after the fault
+    draws): every outbox plane is taken where it lies (the insert plan
+    raises on a group stride other than 1), and the model of the kernels
+    over the plans equals ``mailbox.wheel_deliver``/``wheel_insert``."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.sim import FuzzConfig, runner
+    from paxi_tpu_torch.sim.types import StepCtx
+    proto, cfg = sim_protocol(name), SimConfig(**SLICE8[name])
+    fuzz = FuzzConfig(p_drop=0.2, max_delay=2)
+    body = runner.make_scan_body(proto, cfg, fuzz)
+    with torch.inference_mode():
+        carry = runner.init_carry(proto, cfg, fuzz, g, tr.PRNGKey(1), "cpu")
+        for t in range(6):
+            carry, _ = body(carry, t)
+        state, wheel, fs, rng = carry
+        _, k_step, _, k_ins = tr.split(rng, 4)
+        inbox, rolled = pmb.wheel_deliver(wheel)
+        _, outbox = proto.step(state, inbox, StepCtx(k_step, 6, cfg))
+        faults = pmb.draw_edge_faults(k_ins, outbox, fuzz)
+        outbox, faults = pmb.full_edges(outbox, faults, g)
+    for box in outbox.values():
+        for x in box.values():
+            assert x.shape[-1] == g and x.stride()[-1] == 1
+    plans, outputs = px.deliver_plan(wheel)
+    for p in plans:
+        _model_deliver(p)
+    got_inbox, _ = outputs()
+    assert_tree_equal(inbox, got_inbox, "inbox")
+    plans, outputs = px.insert_plan(rolled, outbox, fs, faults)
+    assert len(plans) == 1
+    for p in plans:
+        _model_insert(p)
+    want = pmb.wheel_insert(rolled, outbox, fs, faults)
+    assert_tree_equal({k: b.planes for k, b in want.items()},
+                      {k: b.planes for k, b in outputs().items()}, "wheel")

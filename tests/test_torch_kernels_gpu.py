@@ -4,9 +4,11 @@ paths, the outbox as protocols lay it and at a ragged G), the transitive
 closure and the ring shift (at world 1
 and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
 paths on the card against the same runs on the CPU, workload runs and the
-per-group paxos_pg kernel on the card against the CPU, and sharded runs
+per-group paxos_pg kernel on the card against the CPU, sharded runs
 of four ranks on the card (paxos, and a padded paxos_pg under a workload)
-against the same ranks on the CPU.
+against the same ranks on the CPU, and the wankeeper, bpaxos, chain,
+kpaxos, abd, dynamo and blockchain kernels with the wankeeper_nofloor and
+bpaxos_noread twins on the card against the CPU.
 
 Run on a machine with a CUDA card:
 
@@ -576,3 +578,53 @@ def test_sharded_paxos_pg_on_card_equals_cpu(card):
         assert {k: int(v) for k, v in a[1].items()} \
             == {k: int(v) for k, v in b[1].items()}
         assert int(a[2]) == int(b[2]) == 0
+
+
+# ---- the protocols of slice 8 and their seeded twins -----------------------
+
+SLICE8 = {
+    "wankeeper": dict(n_replicas=6, n_zones=2, n_objects=4, n_slots=16,
+                      locality=0.8),
+    "wankeeper_geo": dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
+                          locality=0.8),
+    "wankeeper_nofloor": dict(n_replicas=6, n_zones=2, n_objects=2,
+                              n_slots=16, locality=0.1),
+    "bpaxos": dict(n_replicas=7, n_slots=32),
+    "bpaxos_noread": dict(n_replicas=7, n_slots=16),
+    "chain": dict(n_replicas=3, n_slots=64),
+    "kpaxos": dict(n_replicas=3, n_slots=32),
+    "abd": dict(n_replicas=5, n_keys=16),
+    "dynamo": dict(n_replicas=5, n_keys=8, n_slots=40),
+    "blockchain": dict(n_replicas=5, n_slots=32, steal_threshold=4),
+}
+
+
+@pytest.mark.parametrize("fuzzed", [False, True])
+@pytest.mark.parametrize("case", SLICE8)
+def test_slice8_protocol_card_equals_cpu(card, case, fuzzed):
+    """Each protocol and twin of slice 8 on the card equals the CPU, plane
+    for plane, fault-free and under drops, dups, delays and partitions
+    (the wankeeper geo shape under wan3z), with one launch of each
+    exchange half a step; the twins violate the same on both."""
+    from paxi_tpu_torch.convert import state_to_numpy
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.scenarios import NAMED, with_scenario
+    from paxi_tpu_torch.sim import FuzzConfig, simulate
+    name = case.removesuffix("_geo")
+    fuzz = (FuzzConfig(p_drop=0.2, p_dup=0.05, max_delay=2, p_partition=0.1,
+                       window=8) if fuzzed else FuzzConfig())
+    if case.endswith("_geo"):
+        fuzz = with_scenario(fuzz, NAMED["wan3z"])
+    proto, cfg, steps = sim_protocol(name), SimConfig(**SLICE8[case]), 40
+    a = simulate(proto, cfg, 64, steps, fuzz, seed=2, device="cpu")
+    px.reset_launches()
+    b = simulate(proto, cfg, 64, steps, fuzz, seed=2)
+    assert px.wheel_deliver.launches == px.wheel_insert.launches == steps
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
+    for k in a.metrics:
+        assert int(a.metrics[k]) == int(b.metrics[k]), k
+    assert int(a.violations) == int(b.violations)
+    if not name.endswith(("_nofloor", "_noread")):
+        assert int(b.violations) == 0

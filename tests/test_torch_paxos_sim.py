@@ -160,7 +160,7 @@ def test_unported_options_raise():
     from paxi_tpu_torch.parallel import make_sharded_pinned_run
     from paxi_tpu_torch.workload import HOTRANGE, ZIPF99, apply_workload
     with pytest.raises(KeyError):
-        sim_protocol("abd")
+        sim_protocol("switchpaxos")
     with pytest.raises(ValueError, match="hot_keys"):
         apply_workload(SimConfig(**CFG).with_(n_keys=4), HOTRANGE)
     with pytest.raises(NotImplementedError, match="lane-major"):
