@@ -73,7 +73,7 @@ non-zero exit code and no result line:
    kernel, against the lane-major run: equal kv planes and class counts
    under zipf99, both gated under flash); the time of the workload's hash
    planes at a step's shapes; every cell and paxos_pg card against CPU at
-   64 groups x 30 steps, fault-free and fuzzed; and, inside phase 6's
+   64 groups x 12 steps, fault-free and fuzzed; and, inside phase 6's
    spawn, the sharded zipf99 paxos (global group ids), a padded paxos_pg
    run of 257 groups and a sharded pinned replay of a paxos_pg capture,
    each against its one-device run on the card; phase 2 also times the
@@ -88,10 +88,27 @@ non-zero exit code and no result line:
    groups x 80 steps (a violating group found, one replay equal to the
    capture) and ``bpaxos_noread`` at 100,000 groups (it must violate; card
    against CPU at 16 groups); every new kernel and twin card against
-   CPU at 64 groups x 30 steps, fault-free and fuzzed; phase 2 also checks
+   CPU at 64 groups x 12 steps, fault-free and fuzzed; phase 2 also checks
    and times the exchange at the wankeeper (6 replicas, 9 types), bpaxos
    (7, 5 types) and blockchain (5, one type, wheel depth 2) mailboxes;
-9. the kernel summary line, the ``nvidia-smi`` line, and last the result
+9. switchpaxos and the demo kernels (slice 9): the exchange pair at the
+   switchpaxos mailbox (6 types, 22 planes; 5 replicas at wheel depth 1
+   and 3, 3 replicas at the wan3z depth); ``bench_all.py``'s switchnet
+   pair at 100,000 groups x 100 steps under wan3z (``switchpaxos_wan3z``
+   beside ``paxos_wan3z_base``, the same geometry: the switch must
+   commit at least a round sooner at the median) and the hunt's
+   switchpaxos case under the seqchurn sequencer windows and DROP at
+   100,000 x 140 (stamp gaps detected), each held to the JAX package's
+   count (``SWITCH_ROWS``; seqchurn's includes the reference's own 74
+   oracle and 227 in-scan violations at this width) with one launch of
+   each exchange half a step; the ``switchpaxos_nogap`` twin captured at
+   100,000 x 80 under DROP (a violating group found, one replay equal),
+   and the seqchurn row's own violation captured and replayed the same
+   way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn,
+   nogap at 16 groups and the per-group ``fragile_counter`` and
+   ``relay_churn`` demos at their hunt shapes, card against CPU (the
+   twins and demos must violate); a step split of the three rows;
+10. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and exits non-zero when CUDA
@@ -218,6 +235,51 @@ PROTO_ROWS = {
                         expect={"committed_cmds": 50_749_712,
                                 "committed_slots": (2 * 104 - 5) * GROUPS}),
 }
+# phase 9: bench_all.py's switchnet pair (``_cfgs``, bench_all.py:139-150:
+# the same geometry under the wan3z matrix alone) and the hunt's
+# switchpaxos case under the seqchurn sequencer schedule and DROP
+# (paxi_tpu/hunt/cases.py:101-103; ``apply_switch(cfg, SEQ_CHURN)`` is the
+# sw_down_* knobs below) at GROUPS groups.  Every count is drawn from the
+# seed or the zone jitter: the JAX package's on the CPU at the same shape
+# and seed (``scripts/reference_counts.py ROW``).  Neither kernel keeps
+# zone-local and cross-zone latency counters (in the reference neither), so
+# these rows have no local/cross split: their p50s are the measure
+SWITCH_CFG = dict(n_replicas=3, n_slots=32)
+# the hunt's switchpaxos geometry (its nogap twin's too)
+HUNT_SWITCH_CFG = dict(n_replicas=5, n_slots=32)
+SEQCHURN_CFG = dict(HUNT_SWITCH_CFG, sw_down_start=20, sw_down_period=40,
+                    sw_down_for=12)
+SWITCH_ROWS = {
+    "switchpaxos_wan3z": dict(protocol="switchpaxos", cfg=SWITCH_CFG,
+                              steps=100, schedule="wan3z",
+                              line="switch_path",
+                              metric="switchpaxos_slots_per_sec",
+                              expect={"committed_slots": 6_716_530}),
+    "paxos_wan3z_base": dict(protocol="paxos", cfg=SWITCH_CFG, steps=100,
+                             schedule="wan3z", line="switch_path",
+                             metric="paxos_slots_per_sec",
+                             expect={"committed_slots": 4_355_335}),
+    # the reference itself violates here at 100k groups (74 oracle and
+    # 227 in-scan violations; none at the hunt's 32 groups): a safety bug
+    # of the reference's switchpaxos under drops (the witness's first
+    # violation comes before the first down window), which the port
+    # reproduces bit for bit and is held to (PERF.md section 6)
+    "switchpaxos_seqchurn": dict(protocol="switchpaxos", cfg=SEQCHURN_CFG,
+                                 steps=140, schedule="seqchurn_drop",
+                                 line="switch_path",
+                                 metric="switchpaxos_slots_per_sec",
+                                 expect={"committed_slots": 7_732_715},
+                                 violations=(74, 227)),
+}
+# the nogap twin (DEMO_CASES, cases.py:143-148): captured at GROUPS x
+# NOGAP_STEPS under the hunt's DROP, card against CPU at NOGAP_SMALL_GROUPS
+NOGAP_STEPS, NOGAP_SMALL_GROUPS = 80, 16
+# the demo kernels' hunt cases (DEMO_CASES): (config, schedules, groups,
+# steps); every schedule must violate
+DEMO_CASES = {"fragile_counter": (dict(n_replicas=3), ("hunt_drop",), 8, 30),
+              "relay_churn": (dict(n_replicas=3), ("churn", "wan3z_churn"),
+                              8, 60)}
+SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 20
 # bench_all.py's FUZZ schedule (blockchain_forks)
 BENCH_FUZZ_ARGS = dict(p_drop=0.1, p_dup=0.05, max_delay=2, p_partition=0.1,
                        window=16)
@@ -227,6 +289,10 @@ TWIN_CFGS = {"wankeeper_nofloor": dict(n_replicas=6, n_zones=2, n_objects=2,
                                        n_slots=16, locality=0.1),
              "bpaxos_noread": dict(n_replicas=7, n_slots=16)}
 TWIN_DROP_ARGS = dict(p_drop=0.25, max_delay=2)
+# the hunt's PART and KILL (paxi_tpu/hunt/cases.py:24-25)
+HUNT_PART_ARGS = dict(p_partition=0.3, p_crash=0.15, max_delay=2, window=8)
+HUNT_KILL_ARGS = dict(p_drop=0.1, max_delay=2, perm_crash=0,
+                      perm_crash_at=25)
 TWIN_STEPS, TWIN_SMALL_GROUPS = 80, 16
 # phase 6's sharded card-against-CPU runs
 SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
@@ -263,7 +329,9 @@ WL_STEPS = {"paxos": 120, "wpaxos": 60}
 # spec without a flash gate changes keys, reads and classes only
 WL_EXPECT = {("paxos", "uniform"): 116 * GROUPS,
              ("paxos", "zipf99"): 116 * GROUPS}
-WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 30   # card-against-CPU shape
+# the card-against-CPU shape of phases 7 and 8 (30 steps until phase 9
+# came; PERF.md section 4)
+WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 12
 WL_SHARD_GROUPS, PG_SHARD_GROUPS = 256, 257  # 257: three pad groups
 PG_PIN = dict(group=131, steps=SMALL_STEPS)  # the sharded pinned replay
 
@@ -645,6 +713,30 @@ def card_vs_cpu_phase(path: str, proto, cfg, count: str,
             "seconds": time.perf_counter() - t0}))
 
 
+def card_vs_cpu_case(name: str, cfg_kw, sched: str, groups: int,
+                     steps: int, violate: bool) -> None:
+    """One run on the CPU and on the card from the same seed, equal on
+    every plane, metric and violation count; a seeded twin or demo must
+    violate (``violate``), any other kernel must not."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import SimConfig, simulate
+    proto, cfg, fuzz = sim_protocol(name), SimConfig(**cfg_kw), \
+        schedule_of(sched)
+    t0 = time.perf_counter()
+    runs = [simulate(proto, cfg, groups, steps, fuzz, seed=SEED, device=d)
+            for d in ("cpu", DEVICE)]
+    compare_runs(*runs, f"{name} {sched}")
+    viol = int(runs[1].violations)
+    log("card_vs_cpu " + json.dumps({
+        "protocol": name, "schedule": sched, "config": cfg_kw,
+        "groups": groups, "steps": steps, "equal": True,
+        "violations": viol, "seconds": time.perf_counter() - t0}))
+    if violate and not viol > 0:
+        fail(f"{name} under {sched} did not violate")
+    if not violate and (viol or runs[1].inscan_violations):
+        fail(f"{name} under {sched}: safety violations")
+
+
 # ---- phase 4: the main paths --------------------------------------------
 
 def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
@@ -794,18 +886,28 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
 
 def schedule_of(name: str):
     """A row's schedule: ``fault_free``, ``wan3z`` (the zone-latency
-    matrix alone) or ``bench_fuzz`` (bench_all.py's FUZZ)."""
+    matrix alone), ``bench_fuzz`` (bench_all.py's FUZZ), or one of the
+    hunt's (``hunt_drop``, ``seqchurn_drop``, ``part``, ``kill``,
+    ``churn``, ``wan3z_churn``)."""
     from paxi_tpu_torch.scenarios import NAMED, with_scenario
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig
     return {"fault_free": FAULT_FREE,
             "wan3z": with_scenario(FAULT_FREE, NAMED["wan3z"]),
-            "bench_fuzz": FuzzConfig(**BENCH_FUZZ_ARGS)}[name]
+            "bench_fuzz": FuzzConfig(**BENCH_FUZZ_ARGS),
+            # the hunt's DROP; seqchurn's down windows ride in the config
+            "hunt_drop": FuzzConfig(**TWIN_DROP_ARGS),
+            "seqchurn_drop": FuzzConfig(**TWIN_DROP_ARGS),
+            "part": FuzzConfig(**HUNT_PART_ARGS),
+            "kill": FuzzConfig(**HUNT_KILL_ARGS),
+            "churn": FuzzConfig(scenario=NAMED["churn"]),
+            "wan3z_churn": FuzzConfig(scenario=NAMED["wan3z_churn"])}[name]
 
 
 # metrics a row prints beside its counts where its protocol has them
 ROW_EXTRAS = ("steals", "commands_proposed", "transfers", "root_execute",
               "recoveries", "reads_done", "tail_applied", "mined", "reorgs",
-              "converged", "converged_keys")
+              "converged", "converged_keys", "fast_commits", "gap_events",
+              "sw_overflows")
 
 
 def new_path_run(key: str, smi: str, paths=None):
@@ -844,8 +946,13 @@ def new_path_run(key: str, smi: str, paths=None):
     if spec.get("split"):
         row.update(latency_split(metrics))
     log(spec["line"] + " " + json.dumps(row))
-    if int(res.violations) != 0 or (res.inscan_violations or 0) != 0:
-        fail(f"{key}: safety violations")
+    # a row whose reference run violates is held to the JAX package's
+    # (oracle, in-scan) counts at the same shape and seed; any other to 0
+    want_viol = spec.get("violations", (0, 0))
+    got_viol = (int(res.violations), res.inscan_violations or 0)
+    if got_viol != want_viol:
+        fail(f"{key}: (oracle, in-scan) violations {got_viol}, expected "
+             f"{want_viol}")
     for k, want in spec["expect"].items():
         if counts[k] != want:
             fail(f"{key}: {k} {counts[k]}, expected {want}")
@@ -1448,31 +1555,30 @@ def workload_sharded_lines(pg, card_small, pg_ref, smi: str):
 
 # ---- phase 8: the protocols of slice 8 and their seeded twins ----------
 
-def twin_phase(smi: str):
-    """The seeded twins at GROUPS groups under DROP: ``wankeeper_nofloor``
-    captured (every group's schedule recorded on the card; a violating
-    group must be found) and replayed once to the capture's hash,
-    counters and histogram; ``bpaxos_noread`` run, which must violate;
-    noread card against CPU at TWIN_SMALL_GROUPS.  Returns the
-    capture's and the noread run's launch counts."""
+def capture_replay_phase(name: str, cfg_kw, fuzz_args, steps: int,
+                         smi: str, line: str = "twin_path"):
+    """A kernel that violates at GROUPS groups under ``fuzz_args`` (a
+    seeded twin, or a row whose reference run violates): captured (every
+    group's schedule recorded on the card; a violating group must be
+    found) and replayed once to the capture's hash, counters, histogram
+    and violations.  Returns the capture's and the replay's launch
+    counts."""
     from paxi_tpu_torch import trace as T
     from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import FuzzConfig, SimConfig, simulate
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig
 
-    fuzz = FuzzConfig(**TWIN_DROP_ARGS)
-    proto = sim_protocol("wankeeper_nofloor")
-    cfg = SimConfig(**TWIN_CFGS["wankeeper_nofloor"])
+    fuzz = FuzzConfig(**fuzz_args)
+    proto, cfg = sim_protocol(name), SimConfig(**cfg_kw)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    tr_ = T.capture(proto, cfg, fuzz, SEED, GROUPS, TWIN_STEPS,
-                    device=DEVICE)
+    tr_ = T.capture(proto, cfg, fuzz, SEED, GROUPS, steps, device=DEVICE)
     capture_s = time.perf_counter() - t0
     capture_launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if tr_ is None:
-        fail("wankeeper_nofloor under DROP found no violating group")
-    expect_launches("nofloor capture", capture_launches, TWIN_STEPS)
+        fail(f"{name} found no violating group")
+    expect_launches(f"{name} capture", capture_launches, steps)
     m = tr_.meta
     sched_bytes = sum(v.nbytes for v in (tr_.sched["conn"],
                                          tr_.sched["crashed"]))
@@ -1482,19 +1588,19 @@ def twin_phase(smi: str):
     t0 = time.perf_counter()
     r = T.replay(tr_, device=DEVICE)
     replay_s = time.perf_counter() - t0
-    expect_launches("nofloor replay", launch_counts(), TWIN_STEPS)
+    replay_launches = launch_counts()
+    expect_launches(f"{name} replay", replay_launches, steps)
     for what, got, want in (
             ("state hash", r.state_hash, m["capture_state_hash"]),
             ("counters", r.counters, m["capture_counters"]),
             ("latency histogram", r.lat_hist, m.get("capture_lat_hist")),
             ("violations", r.violations, m["group_violations"])):
         if got != want:
-            fail(f"nofloor replay: {what} {got} != capture's {want}")
-    log("twin_path " + json.dumps({
-        "protocol": "wankeeper_nofloor", "schedule": TWIN_DROP_ARGS,
-        "groups": GROUPS, "steps": TWIN_STEPS,
-        "config": TWIN_CFGS["wankeeper_nofloor"], "group": m["group"],
-        "group_violations": m["group_violations"],
+            fail(f"{name} replay: {what} {got} != capture's {want}")
+    log(line + " " + json.dumps({
+        "protocol": name, "schedule": fuzz_args,
+        "groups": GROUPS, "steps": steps, "config": cfg_kw,
+        "group": m["group"], "group_violations": m["group_violations"],
         "first_violation_step": m["first_violation_step"],
         "n_events": tr_.n_events(), "capture_wall_s": capture_s,
         "replay_wall_s": replay_s, "replay_equal_to_capture": True,
@@ -1503,7 +1609,22 @@ def twin_phase(smi: str):
         "state_hash": r.state_hash, "device": smi}))
     del tr_, r
     torch.cuda.empty_cache()
+    return capture_launches, replay_launches
 
+
+def twin_phase(smi: str):
+    """The seeded twins at GROUPS groups under DROP: ``wankeeper_nofloor``
+    captured and replayed (``capture_replay_phase``); ``bpaxos_noread``
+    run, which must violate; noread card against CPU at
+    TWIN_SMALL_GROUPS.  Returns the capture's and the noread run's launch
+    counts."""
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig, simulate
+
+    capture_launches = capture_replay_phase(
+        "wankeeper_nofloor", TWIN_CFGS["wankeeper_nofloor"], TWIN_DROP_ARGS,
+        TWIN_STEPS, smi)[0]
+    fuzz = FuzzConfig(**TWIN_DROP_ARGS)
     proto = sim_protocol("bpaxos_noread")
     cfg = SimConfig(**TWIN_CFGS["bpaxos_noread"])
     torch.cuda.reset_peak_memory_stats()
@@ -1527,17 +1648,8 @@ def twin_phase(smi: str):
     expect_launches("noread run", noread_launches, TWIN_STEPS)
     del res
 
-    t0 = time.perf_counter()
-    runs = [simulate(proto, cfg, TWIN_SMALL_GROUPS, TWIN_STEPS, fuzz,
-                     seed=SEED, device=d) for d in ("cpu", DEVICE)]
-    compare_runs(*runs, "bpaxos_noread twin")
-    log("card_vs_cpu " + json.dumps({
-        "protocol": "bpaxos_noread", "schedule": "drop",
-        "groups": TWIN_SMALL_GROUPS, "steps": TWIN_STEPS, "equal": True,
-        "violations": int(runs[1].violations),
-        "seconds": time.perf_counter() - t0}))
-    if not int(runs[1].violations) > 0:
-        fail("bpaxos_noread did not violate at 16 groups")
+    card_vs_cpu_case("bpaxos_noread", TWIN_CFGS["bpaxos_noread"],
+                     "hunt_drop", TWIN_SMALL_GROUPS, TWIN_STEPS, True)
     return capture_launches, noread_launches
 
 
@@ -1554,6 +1666,45 @@ def slice8_small_phase():
         card_vs_cpu_phase(name, sim_protocol(name), SimConfig(**cfg_kw),
                           "committed_slots", WL_SMALL_GROUPS,
                           WL_SMALL_STEPS)
+
+
+# ---- phase 9: switchpaxos, its nogap twin and the demo kernels ----------
+
+def switch_pair_phase(smi: str):
+    """bench_all.py's switchnet pair and the hunt's seqchurn case at
+    GROUPS groups (``SWITCH_ROWS``), each held to its count with one launch
+    of each exchange half a step; the switch must commit at least one
+    round sooner than paxos at the median (the reference's ``verify.sh
+    --bench`` check) and seqchurn must detect stamp gaps."""
+    rows = {k: new_path_run(k, smi, SWITCH_ROWS) for k in SWITCH_ROWS}
+    p50 = {k: rows[k]["commit_latency"]["p50_rounds"]
+           for k in ("switchpaxos_wan3z", "paxos_wan3z_base")}
+    log("switch_pair " + json.dumps({
+        "p50_rounds": p50,
+        "p99_rounds": {k: rows[k]["commit_latency"]["p99_rounds"]
+                       for k in p50},
+        "rounds_saved_at_p50": p50["paxos_wan3z_base"]
+        - p50["switchpaxos_wan3z"], "device": smi}))
+    if not p50["switchpaxos_wan3z"] + 1 <= p50["paxos_wan3z_base"]:
+        fail(f"switch p50 not a round under paxos: {p50}")
+    if not rows["switchpaxos_seqchurn"]["gap_events"] > 0:
+        fail("switchpaxos under seqchurn detected no stamp gap")
+    return rows
+
+
+def slice9_small_phase():
+    """Switchpaxos fault-free and under the hunt's schedules, the nogap
+    twin, and the two per-group demo kernels, card against CPU."""
+    for sched in ("fault_free", "hunt_drop", "part", "kill"):
+        card_vs_cpu_case("switchpaxos", HUNT_SWITCH_CFG, sched,
+                         SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS, False)
+    card_vs_cpu_case("switchpaxos", SEQCHURN_CFG, "seqchurn_drop",
+                     SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS, False)
+    card_vs_cpu_case("switchpaxos_nogap", HUNT_SWITCH_CFG, "hunt_drop",
+                     NOGAP_SMALL_GROUPS, NOGAP_STEPS, True)
+    for name, (cfg_kw, scheds, groups, steps) in DEMO_CASES.items():
+        for sched in scheds:
+            card_vs_cpu_case(name, cfg_kw, sched, groups, steps, True)
 
 
 # ---- phase 6: four ranks on the one card ---------------------------------
@@ -1922,12 +2073,40 @@ def main() -> int:
     nofloor_launches, noread_launches = twin_phase(smi)
     slice8_small_phase()
     t8 = time.perf_counter() - t8
+
+    # 9. switchpaxos: the exchange at its mailbox, bench_all's wan3z pair
+    # and the seqchurn case at 100k, the nogap and seqchurn captures, card
+    # against CPU, a step split
+    t9 = time.perf_counter()
+    sw_spec = sim_protocol("switchpaxos").mailbox_spec(
+        SimConfig(**HUNT_SWITCH_CFG))
+    xrows["switchpaxos"] = exchange_phase("switchpaxos", sw_spec)
+    xrows["switchpaxos_wan3z"] = exchange_phase(
+        "switchpaxos", sw_spec, depths=(schedule_of("wan3z").wheel,),
+        replicas=SWITCH_CFG["n_replicas"])
+    switch_rows = switch_pair_phase(smi)
+    nogap_launches = capture_replay_phase(
+        "switchpaxos_nogap", HUNT_SWITCH_CFG, TWIN_DROP_ARGS, NOGAP_STEPS,
+        smi)
+    # the reference's own seqchurn violation at this width: its witness
+    seqchurn_launches = capture_replay_phase(
+        "switchpaxos", SEQCHURN_CFG, TWIN_DROP_ARGS,
+        SWITCH_ROWS["switchpaxos_seqchurn"]["steps"], smi,
+        line="switch_witness")
+    slice9_small_phase()
+    for row in SWITCH_ROWS:
+        spec = SWITCH_ROWS[row]
+        step_split_phase(row, sim_protocol(spec["protocol"]),
+                         SimConfig(**spec["cfg"]),
+                         schedule_of(spec["schedule"]), spec["schedule"])
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter() - t9
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
-        "slice8_protocols": t8,
+        "slice8_protocols": t8, "slice9_switchpaxos": t9,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 9. the kernel summary: launches from the epaxos main path (the one
+    # 10. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
@@ -1939,7 +2118,12 @@ def main() -> int:
                       for (p, wl), r in wl_rows.items()},
                    **{row: r["kernels"][k] for row, r in proto_rows.items()},
                    "nofloor_capture": nofloor_launches[k],
-                   "noread_run": noread_launches[k]}
+                   "noread_run": noread_launches[k],
+                   **{row: r["kernels"][k] for row, r in switch_rows.items()},
+                   "nogap_capture": nogap_launches[0][k],
+                   "nogap_replay": nogap_launches[1][k],
+                   "seqchurn_capture": seqchurn_launches[0][k],
+                   "seqchurn_replay": seqchurn_launches[1][k]}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),
@@ -1967,7 +2151,11 @@ def main() -> int:
                                ("wpaxos_grid", "wpaxos_workload", 1),
                                ("wankeeper", "wankeeper", 1),
                                ("bpaxos", "bpaxos", 1),
-                               ("blockchain", "blockchain", 2))}})
+                               ("blockchain", "blockchain", 2),
+                               ("switchpaxos", "switchpaxos", 1),
+                               ("switchpaxos", "switchpaxos", 3),
+                               ("switchpaxos_r3_wan3z", "switchpaxos_wan3z",
+                                6))}})
     row = crows[0]              # main-path shape, the sparser density
     kernels.append({
         "name": "transitive_closure", "route": "cuda",

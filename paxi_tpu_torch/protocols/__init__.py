@@ -2,12 +2,16 @@
 a ``SimProtocol``, as in the JAX package's registry (``"module:ATTR"``
 picks a symbol other than ``PROTOCOL``).  Ported: the lane-major
 ``paxos``, ``epaxos``, ``sdpaxos``, ``wpaxos``, ``wankeeper``, ``bpaxos``,
-``chain``, ``kpaxos``, ``abd``, ``dynamo`` and ``blockchain`` kernels;
-``paxos_pg``, the per-group (group axis leading) Multi-Paxos kernel; and
-three seeded-bug twins, which violate by design: ``wpaxos_thinq1`` (a
-phase-1 grid quorum one zone thin), ``wankeeper_nofloor`` (no granted-
-version floor) and ``bpaxos_noread`` (takeover without the column read).
-``switchpaxos`` and the trace and scenario demo kernels are not ported.
+``chain``, ``kpaxos``, ``abd``, ``dynamo``, ``blockchain`` and
+``switchpaxos`` kernels; ``paxos_pg``, the per-group (group axis leading)
+Multi-Paxos kernel; four seeded-bug twins, which violate by design:
+``wpaxos_thinq1`` (a phase-1 grid quorum one zone thin),
+``wankeeper_nofloor`` (no granted-version floor), ``bpaxos_noread``
+(takeover without the column read) and ``switchpaxos_nogap`` (stamp gaps
+NOOP-committed instead of gap agreement); and the per-group demo kernels
+of the trace and scenario engines, ``fragile_counter`` and
+``relay_churn``, which violate by design too.  Every sim name of the JAX
+package's registry resolves here.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ _SIM_MODULES = {
     "abd": "paxi_tpu_torch.protocols.abd.sim",
     "dynamo": "paxi_tpu_torch.protocols.dynamo.sim",
     "blockchain": "paxi_tpu_torch.protocols.blockchain.sim",
+    "switchpaxos": "paxi_tpu_torch.protocols.switchpaxos.sim",
+    "switchpaxos_nogap":
+        "paxi_tpu_torch.protocols.switchpaxos.sim:PROTOCOL_NOGAP",
+    "fragile_counter": "paxi_tpu_torch.trace.demo",
+    "relay_churn": "paxi_tpu_torch.scenarios.demo",
 }
 
 
@@ -41,7 +50,7 @@ def sim_protocol(name: str) -> SimProtocol:
     try:
         module = _SIM_MODULES[name]
     except KeyError:
-        raise KeyError(f"unknown or unported sim protocol {name!r}; "
+        raise KeyError(f"unknown sim protocol {name!r}; "
                        f"known: {sorted(_SIM_MODULES)}") from None
     module, _, attr = module.partition(":")
     return getattr(importlib.import_module(module), attr or "PROTOCOL")

@@ -6,9 +6,10 @@ Two halves:
 - **Layout-free selections** (``pick_src``, ``take_replica``,
   ``dst_major``, ``diag2``): serve both ring contracts — the fixed-cell
   core (``sim/cell_ring.py``, paxos) and the sliding-window kernels.
-- **Sliding-window** (``shift_window``, ``shift_deps``): ring position
-  ``i`` holds absolute instance ``base + i``, and the window slides
-  forward by a per-lane advance as the execute frontier moves (epaxos).
+- **Sliding-window** (``shift_window``, ``shift_row``, ``shift_deps``):
+  ring position ``i`` holds absolute instance ``base + i``, and the
+  window slides forward by a per-lane advance as the execute frontier
+  moves (epaxos, switchpaxos).
 """
 
 from __future__ import annotations
@@ -63,6 +64,14 @@ def shift_window(arr: torch.Tensor, adv: torch.Tensor, fill) -> torch.Tensor:
     idxc = torch.clamp(idx, 0, S - 1).to(torch.int64)
     got = torch.gather(arr, -2, idxc.expand(arr.shape))
     return torch.where(valid, got, fill)
+
+
+def shift_row(row: torch.Tensor, adv: torch.Tensor, fill) -> torch.Tensor:
+    """``shift_window`` of one source plane viewed by R readers at
+    per-``(r, g)`` offsets: ``row (S, G)``, ``adv (R, G)`` ->
+    out[r, i, g] = row[i + adv[r, g], g], ``fill`` outside the window."""
+    R = adv.shape[0]
+    return shift_window(row.expand((R,) + tuple(row.shape)), adv, fill)
 
 
 def shift_deps(pl: torch.Tensor, adv: torch.Tensor, fill=-1) -> torch.Tensor:

@@ -5,6 +5,8 @@ dispatches (each one a kernel launch on the card), on the CPU.
     python3 scripts/torch_op_count.py [--protocol wpaxos_thinq1]
         [--groups 16] [--warm 5] [--workload zipf99] [--config workload]
     python3 scripts/torch_op_count.py --row wankeeper_zones [--groups 16]
+    python3 scripts/torch_op_count.py --protocol switchpaxos \
+        --config wan3z|seqchurn
 
 Runs ``--warm`` rounds of the hunt's ``wpaxos_thinq1`` case (9 replicas
 in 3 zones, 4 objects, 16 slots) or of another protocol at that
@@ -15,8 +17,13 @@ line.  ``--workload NAME`` runs the named workload on ``bench_all.py``'s
 workload configuration of the protocol instead (paxos and paxos_pg: 3
 replicas, 16 slots, 64 keys; wpaxos: the 3 x 3 grid, 16 objects over 32
 keys); ``--config workload`` takes that configuration without one.
-``--row NAME`` counts a round of one of ``chip_smoke.py``'s phase-8 rows
-(``PROTO_ROWS``: bench_all.py's protocol rows) under its own schedule.  The count is the same at any group count.  On the card the
+``--row NAME`` counts a round of one of ``chip_smoke.py``'s phase-8 or
+phase-9 rows (``PROTO_ROWS``, ``SWITCH_ROWS``: bench_all.py's protocol
+rows) under its own schedule.  ``--config wan3z`` takes bench_all.py's
+switchnet pair geometry (3 replicas, 32 slots) under the wan3z matrix
+alone, ``--config seqchurn`` the hunt's switchpaxos case (5 replicas, 32
+slots, the seqchurn sequencer windows) under DROP; each also counts a
+fault-free round.  The count is the same at any group count.  On the card the
 lane-major exchange launches its two kernels where the CPU runs their
 plain versions' operators (a few dozen a message type), so the card
 dispatches slightly fewer a step.
@@ -76,12 +83,13 @@ def main() -> int:
     ap.add_argument("--warm", type=int, default=5)
     ap.add_argument("--workload", default=None,
                     help="a named workload (uniform, zipf99, flash, ...)")
-    ap.add_argument("--config", choices=("witness", "workload"),
+    ap.add_argument("--config", choices=("witness", "workload", "wan3z",
+                                         "seqchurn"),
                     default=None, help="the geometry (default: workload "
                     "with --workload, else witness)")
     ap.add_argument("--row", default=None,
-                    help="a chip_smoke.py PROTO_ROWS row, under its own "
-                    "schedule")
+                    help="a chip_smoke.py PROTO_ROWS or SWITCH_ROWS row, "
+                    "under its own schedule")
     args = ap.parse_args()
 
     from paxi_tpu_torch.protocols import sim_protocol
@@ -89,9 +97,9 @@ def main() -> int:
     from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig, SimConfig
     from paxi_tpu_torch.workload import apply_workload, named_workload
 
+    import chip_smoke
     if args.row:
-        import chip_smoke
-        spec = chip_smoke.PROTO_ROWS[args.row]
+        spec = {**chip_smoke.PROTO_ROWS, **chip_smoke.SWITCH_ROWS}[args.row]
         sched = spec.get("schedule", "fault_free")
         print(json.dumps({
             "row": args.row, "protocol": spec["protocol"],
@@ -100,6 +108,20 @@ def main() -> int:
             "ops_a_step": ops_a_step(
                 sim_protocol(spec["protocol"]), SimConfig(**spec["cfg"]),
                 chip_smoke.schedule_of(sched), args.groups, args.warm)}))
+        return 0
+    if args.config in ("wan3z", "seqchurn"):
+        cfg_kw, sched = {"wan3z": (chip_smoke.SWITCH_CFG, "wan3z"),
+                         "seqchurn": (chip_smoke.SEQCHURN_CFG,
+                                      "seqchurn_drop")}[args.config]
+        proto, cfg = sim_protocol(args.protocol), SimConfig(**cfg_kw)
+        print(json.dumps({
+            "protocol": args.protocol, "groups": args.groups,
+            "config": cfg_kw, "device": "cpu (a count, not a time)",
+            "ops_a_step": {
+                sched: ops_a_step(proto, cfg, chip_smoke.schedule_of(sched),
+                                  args.groups, args.warm),
+                "fault_free": ops_a_step(proto, cfg, FAULT_FREE,
+                                         args.groups, args.warm)}}))
         return 0
     cfg_kw = WITNESS_CFG
     if (args.config or ("workload" if args.workload else "witness")) \

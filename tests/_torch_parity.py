@@ -114,9 +114,9 @@ def run_pair(name: str, cfg_kw: dict, fuzz_kw: dict, g: int, t: int,
 def assert_one_step_from_mid_run_carry(name: str, cfg_kw: dict,
                                        fuzz_kw: dict, g: int, seed: int,
                                        t0: int) -> None:
-    """Step ``t0`` of a JAX run, taken as a carry, converted, and advanced
-    one step by each package: the same carry, violations and counters
-    come out."""
+    """Step ``t0`` of a JAX run, taken as a carry, converted (a per-group
+    kernel's in its own layout), and advanced one step by each package:
+    the same carry, violations and counters come out."""
     import jax
     import jax.random as jr
     from paxi_tpu.protocols import sim_protocol as jax_protocol
@@ -134,10 +134,12 @@ def assert_one_step_from_mid_run_carry(name: str, cfg_kw: dict,
     np_carry = jax.device_get(carry)
     res, new_carry = continue_run(proto, cfg, carry, t0, 1, fuzz)
 
-    body = make_scan_body(sim_protocol(name), SimConfig(**cfg_kw), pfuzz)
+    pproto = sim_protocol(name)
+    body = make_scan_body(pproto, SimConfig(**cfg_kw), pfuzz)
     with torch.inference_mode():
         p_carry, (viol, counts) = body(
-            convert.carry_from_numpy(np_carry, "cpu"), t0)
+            convert.carry_from_numpy(np_carry, "cpu",
+                                     per_group=not pproto.batched), t0)
     assert_tree_equal(jax.device_get(new_carry),
                       convert.carry_to_numpy(p_carry), "carry")
     assert_tree_equal(res.violations, viol, "violations")

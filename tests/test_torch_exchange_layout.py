@@ -379,7 +379,7 @@ def test_whole_step_matches_pallas_and_dense(case):
     assert_tree_equal(jmb.wheel_insert(*args), got, "dense insert")
 
 
-# ---- a real step's outbox of each protocol ported in slice 8 ---------------
+# ---- a real step's outbox of each protocol ported in slices 8 and 9 --------
 
 SLICE8 = {
     "wankeeper": dict(n_replicas=6, n_zones=2, n_objects=4, n_slots=16,
@@ -393,6 +393,11 @@ SLICE8 = {
     "abd": dict(n_replicas=5, n_keys=16),
     "dynamo": dict(n_replicas=5, n_keys=8, n_slots=40),
     "blockchain": dict(n_replicas=5, n_slots=32, steal_threshold=4),
+    # slice 9: six types, the p2a/p3 stamps and gapreq's ``n`` expanded
+    # over dst, nogap's all-zero gapreq; seqchurn's down windows
+    "switchpaxos": dict(n_replicas=5, n_slots=32, sw_down_start=2,
+                        sw_down_period=6, sw_down_for=2),
+    "switchpaxos_nogap": dict(n_replicas=5, n_slots=32),
 }
 
 

@@ -8,7 +8,10 @@ per-group paxos_pg kernel on the card against the CPU, sharded runs
 of four ranks on the card (paxos, and a padded paxos_pg under a workload)
 against the same ranks on the CPU, and the wankeeper, bpaxos, chain,
 kpaxos, abd, dynamo and blockchain kernels with the wankeeper_nofloor and
-bpaxos_noread twins on the card against the CPU.
+bpaxos_noread twins on the card against the CPU; the exchange pair at the
+switchpaxos mailbox, switchpaxos (wan3z, seqchurn) with its nogap twin and
+the per-group fragile_counter and relay_churn demos on the card against
+the CPU.
 
 Run on a machine with a CUDA card:
 
@@ -165,7 +168,11 @@ STEP_SHAPES = {
     "paxos_r3_d1": ("paxos", dict(n_replicas=3, n_slots=16, n_keys=64), 1),
     "wpaxos_grid_d1": ("wpaxos", dict(n_replicas=9, n_zones=3, n_slots=16,
                                       n_keys=32, n_objects=16,
-                                      steal_threshold=4, locality=0.8), 1)}
+                                      steal_threshold=4, locality=0.8), 1),
+    # switchpaxos: six types, 22 planes; 3 replicas at the wan3z depth
+    "switchpaxos_d1": ("switchpaxos", dict(n_replicas=5, n_slots=32), 1),
+    "switchpaxos_d3": ("switchpaxos", dict(n_replicas=5, n_slots=32), 3),
+    "switchpaxos_r3_d6": ("switchpaxos", dict(n_replicas=3, n_slots=32), 6)}
 
 
 @pytest.mark.parametrize("views", [True, False])
@@ -628,3 +635,53 @@ def test_slice8_protocol_card_equals_cpu(card, case, fuzzed):
     assert int(a.violations) == int(b.violations)
     if not name.endswith(("_nofloor", "_noread")):
         assert int(b.violations) == 0
+
+
+# ---- slice 9: switchpaxos, its nogap twin and the demo kernels ------------
+
+SLICE9 = {
+    "switchpaxos_wan3z": ("switchpaxos", dict(n_replicas=3, n_slots=32),
+                          "wan3z"),
+    "switchpaxos_seqchurn": ("switchpaxos",
+                             dict(n_replicas=5, n_slots=32, sw_down_start=20,
+                                  sw_down_period=40, sw_down_for=12),
+                             "drop"),
+    "switchpaxos_part": ("switchpaxos", dict(n_replicas=5, n_slots=32),
+                         "part"),
+    "switchpaxos_nogap": ("switchpaxos_nogap", dict(n_replicas=5, n_slots=32),
+                          "drop"),
+    "fragile_counter": ("fragile_counter", dict(n_replicas=3), "drop"),
+    "relay_churn": ("relay_churn", dict(n_replicas=3), "wan3z_churn"),
+}
+
+
+@pytest.mark.parametrize("case", SLICE9)
+def test_slice9_card_equals_cpu(card, case):
+    """Each slice-9 kernel on the card equals the CPU plane for plane; the
+    lane-major ones launch each exchange half once a step, the per-group
+    demos none (their exchange is tensor code); the twins violate the same
+    on both."""
+    from paxi_tpu_torch.convert import state_to_numpy
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.scenarios import NAMED
+    from paxi_tpu_torch.sim import FuzzConfig, simulate
+    name, cfg_kw, sched = SLICE9[case]
+    fuzz = {"wan3z": FuzzConfig(scenario=NAMED["wan3z"]),
+            "drop": FuzzConfig(p_drop=0.25, max_delay=2),
+            "part": FuzzConfig(p_partition=0.3, p_crash=0.15, max_delay=2,
+                               window=8),
+            "wan3z_churn": FuzzConfig(scenario=NAMED["wan3z_churn"])}[sched]
+    proto, cfg, steps = sim_protocol(name), SimConfig(**cfg_kw), 40
+    a = simulate(proto, cfg, 64, steps, fuzz, seed=2, device="cpu")
+    px.reset_launches()
+    b = simulate(proto, cfg, 64, steps, fuzz, seed=2)
+    want = steps if proto.batched else 0
+    assert px.wheel_deliver.launches == px.wheel_insert.launches == want
+    sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
+    for k in a.metrics:
+        assert int(a.metrics[k]) == int(b.metrics[k]), k
+    assert int(a.violations) == int(b.violations)
+    if name == "switchpaxos":
+        assert int(b.violations) == 0 and b.inscan_violations == 0

@@ -154,13 +154,14 @@ def test_entry_points_need_a_device(monkeypatch):
 def test_unported_options_raise():
     """Workloads, scenarios and the sharded replay are ported
     (tests/test_torch_workload.py, test_torch_scenarios.py,
-    test_torch_parallel.py); what is left raises: an unported protocol, a
-    workload that does not fit the key space, and a sharded replay of a
-    lane-major kernel (which the reference refuses too)."""
+    test_torch_parallel.py), and every registered protocol
+    (tests/test_torch_demos.py); what is left raises: a name no registry
+    has, a workload that does not fit the key space, and a sharded replay
+    of a lane-major kernel (which the reference refuses too)."""
     from paxi_tpu_torch.parallel import make_sharded_pinned_run
     from paxi_tpu_torch.workload import HOTRANGE, ZIPF99, apply_workload
     with pytest.raises(KeyError):
-        sim_protocol("switchpaxos")
+        sim_protocol("no_such_protocol")
     with pytest.raises(ValueError, match="hot_keys"):
         apply_workload(SimConfig(**CFG).with_(n_keys=4), HOTRANGE)
     with pytest.raises(NotImplementedError, match="lane-major"):
