@@ -107,9 +107,29 @@ non-zero exit code and no result line:
    way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn,
    nogap at 16 groups and the per-group ``fragile_counter`` and
    ``relay_churn`` demos at their hunt shapes, card against CPU (the
-   twins and demos must violate); a step split of the three rows;
-10. the kernel summary line, the ``nvidia-smi`` line, and last the result
+   twins and demos must violate); a step split of the three rows; the
+   seqchurn witness is saved as the hunt's corpus seed;
+10. the drivers (slice 10), each read with its own launch counts:
+   ``cli.main`` in-process at the main path (``sim -algorithm paxos
+   -groups 100000 -replicas 5 -slots 64 -steps 104``: 10,000,000
+   committed, 0 violations, 104 launches of each exchange half) and one
+   short ``python -m paxi_tpu_torch sim`` subprocess; a hunt
+   micro-campaign through ``cli.main`` (``hunt run --protocols
+   switchpaxos,switchpaxos_nogap --budget 1 --quick --shrink-trials 4
+   --no-host``, its corpus seeded with phase 9's 100k seqchurn witness):
+   the nogap witness captured, shrunk and replayed to its hash, nothing
+   unclassified, the 100k witness classified through the backlog with
+   its coverage logged, each run's violations and progress equal to the
+   CPU's; the ``bench_all`` twin's ``paxos_3rep`` row at its card shape
+   (16,384 groups x 104 steps: 1,638,400 committed); and the
+   ``fuzz_soak`` twin's record of paxos x DROP x seed 0 (64 x 150) equal
+   to the CPU's;
+11. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
+
+The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
+themselves: ``paxi_tpu_torch.bench_all._cfgs`` at the card's shapes and
+``paxi_tpu_torch.hunt.cases``.
 
 It needs one card, imports nothing of JAX, and exits non-zero when CUDA
 is not available.
@@ -118,13 +138,19 @@ is not available.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+
+from paxi_tpu_torch import bench_all
+from paxi_tpu_torch.hunt import cases as hunt_cases
 
 DEVICE = "cuda"
 SEED = 0
@@ -142,6 +168,56 @@ TIMED_REPS = 20
 EXCHANGE_LAUNCHES_A_STEP = 1         # each exchange half, every message type
 SHIFT_INNER = 4                      # shift calls a timed run (world 1)
 FUZZ_ARGS = dict(p_drop=0.1, max_delay=3)
+
+
+def non_default(obj) -> dict:
+    """A config dataclass's fields that differ from their defaults, as
+    keywords (a row's ``cfg``, a schedule's arguments)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) != f.default}
+
+
+def cfg_kwargs(cfg) -> dict:
+    """A SimConfig as keywords: its replica count and every other field
+    that differs from its default."""
+    return {"n_replicas": cfg.n_replicas, **non_default(cfg)}
+
+
+# the rows come from the drivers themselves: bench_all.py's ``_cfgs`` and
+# ``_wl_cfgs`` at the card's shapes, and the hunt's case tables
+BENCH_ROWS = {r[0]: r for r in bench_all._cfgs(DEVICE)}
+HUNT_CASES = {(c[0], c[1].n_replicas): c
+              for c in hunt_cases.CASES + hunt_cases.DEMO_CASES}
+
+
+def bench_row(label: str, steps=None) -> dict:
+    """A ``bench_all._cfgs`` row's protocol, configuration, depth and
+    schedule; chip_smoke runs it at its own group count."""
+    _, proto, cfg, fuzz, _, depth, _, _ = BENCH_ROWS[label]
+    sched = next(k for k, v in SCHEDULE_ARGS.items() if v == fuzz)
+    row = dict(protocol=proto, cfg=cfg_kwargs(cfg), steps=steps or depth)
+    if sched != "fault_free":
+        row["schedule"] = sched
+    return row
+
+
+def hunt_cfg(name: str, replicas: int) -> dict:
+    return cfg_kwargs(HUNT_CASES[name, replicas][1])
+
+
+# the named schedules rows and checks run under: bench_all.py's FUZZ and
+# wan3z geo axis, the hunt's DROP (seqchurn's down windows ride in its
+# config), PART and KILL, and the demo kernels' churn scenarios
+SCHEDULE_ARGS = {
+    "fault_free": bench_all.FAULT_FREE,
+    "wan3z": bench_all.GEO_WAN3Z,
+    "bench_fuzz": bench_all.FUZZ,
+    "hunt_drop": hunt_cases.DROP,
+    "part": hunt_cases.PART,
+    "kill": hunt_cases.KILL,
+    "churn": HUNT_CASES["relay_churn", 3][2][0],
+    "wan3z_churn": HUNT_CASES["relay_churn", 3][2][1],
+}
 # the two main paths: configuration, depth, and what a fault-free run
 # must commit
 PATHS = {
@@ -152,8 +228,9 @@ PATHS = {
                   expect=lambda steps: (steps - 4) * GROUPS),
     # fault-free EPaxos draws nothing random: 74 instances a group
     # commit and execute in 60 steps (the same count as the JAX package)
-    "epaxos": dict(cfg=dict(n_replicas=REPLICAS, n_slots=16, n_keys=4),
-                   steps=60, line="epaxos_path",
+    "epaxos": dict(cfg=bench_row("epaxos_conflict")["cfg"],
+                   steps=bench_row("epaxos_conflict")["steps"],
+                   line="epaxos_path",
                    metric="epaxos_conflict_executed_per_sec",
                    count="executed", expect=lambda steps: 74 * GROUPS),
 }
@@ -164,76 +241,73 @@ PATHS = {
 # the first count a second
 NEW_PATHS = {
     # fault-free sdpaxos commits one slot a group a step from step 4 on
-    "sdpaxos": dict(cfg=dict(n_replicas=5, n_slots=32, n_keys=16),
-                    steps=80, line="sdpaxos_path",
+    "sdpaxos": dict(cfg=bench_row("sdpaxos_tokens")["cfg"],
+                    steps=bench_row("sdpaxos_tokens")["steps"],
+                    line="sdpaxos_path",
                     metric="committed_sdpaxos_slots_per_sec",
                     expect={"committed_slots": 76 * GROUPS}),
     # wpaxos draws its demand and steals from the seed, so its count is
     # that seed's: the card equals the CPU on the same seed (phases 3 and
     # 6) and the CPU the JAX package (tests/test_torch_wpaxos_sim.py)
-    "wpaxos": dict(cfg=dict(n_replicas=9, n_zones=3, n_objects=6,
-                            n_slots=16, steal_threshold=3, locality=0.8),
-                   steps=60, line="wpaxos_path",
+    "wpaxos": dict(cfg=bench_row("wpaxos_3x3_grid")["cfg"],
+                   steps=bench_row("wpaxos_3x3_grid")["steps"],
+                   line="wpaxos_path",
                    metric="committed_wpaxos_slots_per_sec",
                    expect={"committed_slots": 18_041_564}),
 }
 # phase 8: bench_all.py's protocol rows (``_cfgs``) at GROUPS groups, and
-# kpaxos and dynamo at the hunt's configurations (paxi_tpu/hunt/cases.py).
-# A count that depends on the seed's draws is the JAX package's on the
-# CPU at the same shape and seed (``scripts/reference_counts.py ROW``);
-# the others hold for every group alike
-WAN_KEEPER_CFG = dict(n_replicas=9, n_zones=3, n_objects=6, n_slots=16,
-                      locality=0.8)
+# kpaxos and dynamo at the hunt's configurations (hunt/cases.py).  A count
+# that depends on the seed's draws is the JAX package's on the CPU at the
+# same shape and seed (``scripts/reference_counts.py ROW``); the others
+# hold for every group alike
+
+
+def proto_row(row: dict, **kw) -> dict:
+    return dict(row, line="protocol_path", **kw)
+
+
 PROTO_ROWS = {
     # fault-free abd draws nothing: a replica completes an op every 4
     # steps (query, reply, store, ack) from step 0
-    "abd_register": dict(protocol="abd",
-                         cfg=dict(n_replicas=5, n_keys=16), steps=60,
-                         line="protocol_path", metric="abd_ops_per_sec",
-                         expect={"ops_done": 5 * ((60 - 1) // 4) * GROUPS}),
+    "abd_register": proto_row(bench_row("abd_register"),
+                              metric="abd_ops_per_sec",
+                              expect={"ops_done": 5 * ((60 - 1) // 4)
+                                      * GROUPS}),
     # the head commits one write a step from step 4 on
-    "chain_pipeline": dict(protocol="chain",
-                           cfg=dict(n_replicas=3, n_slots=64), steps=110,
-                           line="protocol_path",
-                           metric="chain_slots_per_sec",
-                           expect={"committed_slots": (110 - 4) * GROUPS}),
+    "chain_pipeline": proto_row(bench_row("chain_pipeline"),
+                                metric="chain_slots_per_sec",
+                                expect={"committed_slots": (110 - 4)
+                                        * GROUPS}),
     # three static leaders, one slot a partition a step from step 2 on
-    "kpaxos_path": dict(protocol="kpaxos",
-                        cfg=dict(n_replicas=3, n_slots=32), steps=104,
-                        line="protocol_path", metric="kpaxos_slots_per_sec",
-                        expect={"committed_slots": 3 * (104 - 2) * GROUPS}),
+    "kpaxos_path": proto_row(dict(protocol="kpaxos",
+                                  cfg=hunt_cfg("kpaxos", 3), steps=104),
+                             metric="kpaxos_slots_per_sec",
+                             expect={"committed_slots": 3 * (104 - 2)
+                                     * GROUPS}),
     # every replica writes once a step inside the 40-step write window
-    "dynamo_path": dict(protocol="dynamo",
-                        cfg=dict(n_replicas=5, n_keys=8, n_slots=40),
-                        steps=60, line="protocol_path",
-                        metric="dynamo_writes_per_sec",
-                        expect={"writes": 5 * 40 * GROUPS}),
+    "dynamo_path": proto_row(dict(protocol="dynamo",
+                                  cfg=hunt_cfg("dynamo", 5), steps=60),
+                             metric="dynamo_writes_per_sec",
+                             expect={"writes": 5 * 40 * GROUPS}),
     # the demand is drawn from the seed: the JAX package's count
-    "wankeeper_zones": dict(protocol="wankeeper",
-                            cfg=dict(n_replicas=6, n_zones=2, n_objects=4,
-                                     n_slots=16, locality=0.8), steps=80,
-                            line="protocol_path",
-                            metric="wankeeper_writes_per_sec",
-                            expect={"committed_slots": 9_059_250}),
-    "wankeeper_wan3z_geo": dict(protocol="wankeeper", cfg=WAN_KEEPER_CFG,
-                                steps=100, schedule="wan3z",
-                                line="protocol_path", split=True,
-                                metric="wankeeper_writes_per_sec",
-                                expect={"committed_slots": 9_525_400}),
+    "wankeeper_zones": proto_row(bench_row("wankeeper_zones"),
+                                 metric="wankeeper_writes_per_sec",
+                                 expect={"committed_slots": 9_059_250}),
+    "wankeeper_wan3z_geo": proto_row(bench_row("wankeeper_wan3z_geo"),
+                                     split=True,
+                                     metric="wankeeper_writes_per_sec",
+                                     expect={"committed_slots": 9_525_400}),
     # mining and the fault schedule are drawn from the seed
-    "blockchain_forks": dict(protocol="blockchain",
-                             cfg=dict(n_replicas=5, n_slots=32,
-                                      steal_threshold=4), steps=200,
-                             schedule="bench_fuzz", line="protocol_path",
-                             metric="blockchain_blocks_per_sec",
-                             expect={"committed_slots": 4_068_791}),
+    "blockchain_forks": proto_row(bench_row("blockchain_forks"),
+                                  metric="blockchain_blocks_per_sec",
+                                  expect={"committed_slots": 4_068_791}),
     # two proxies, each a slot a step (2 * steps - 5 a group); the batch
     # sizes, hence the commands, are drawn from the seed
-    "bpaxos_grid": dict(protocol="bpaxos",
-                        cfg=dict(n_replicas=7, n_slots=32), steps=104,
-                        line="protocol_path", metric="bpaxos_cmds_per_sec",
-                        expect={"committed_cmds": 50_749_712,
-                                "committed_slots": (2 * 104 - 5) * GROUPS}),
+    "bpaxos_grid": proto_row(bench_row("bpaxos_grid"),
+                             metric="bpaxos_cmds_per_sec",
+                             expect={"committed_cmds": 50_749_712,
+                                     "committed_slots": (2 * 104 - 5)
+                                     * GROUPS}),
 }
 # phase 9: bench_all.py's switchnet pair (``_cfgs``, bench_all.py:139-150:
 # the same geometry under the wan3z matrix alone) and the hunt's
@@ -244,19 +318,18 @@ PROTO_ROWS = {
 # and seed (``scripts/reference_counts.py ROW``).  Neither kernel keeps
 # zone-local and cross-zone latency counters (in the reference neither), so
 # these rows have no local/cross split: their p50s are the measure
-SWITCH_CFG = dict(n_replicas=3, n_slots=32)
-# the hunt's switchpaxos geometry (its nogap twin's too)
-HUNT_SWITCH_CFG = dict(n_replicas=5, n_slots=32)
-SEQCHURN_CFG = dict(HUNT_SWITCH_CFG, sw_down_start=20, sw_down_period=40,
-                    sw_down_for=12)
+SWITCH_CFG = bench_row("switchpaxos_wan3z")["cfg"]
+# the hunt's switchpaxos geometry (its nogap twin's too), and its seqchurn
+# case (the last CASES row: ``apply_switch(cfg, SEQ_CHURN)``)
+HUNT_SWITCH_CFG = hunt_cfg("switchpaxos_nogap", 5)
+SEQCHURN_CFG = cfg_kwargs(hunt_cases.CASES[-1][1])
 SWITCH_ROWS = {
-    "switchpaxos_wan3z": dict(protocol="switchpaxos", cfg=SWITCH_CFG,
-                              steps=100, schedule="wan3z",
+    "switchpaxos_wan3z": dict(bench_row("switchpaxos_wan3z"),
                               line="switch_path",
                               metric="switchpaxos_slots_per_sec",
                               expect={"committed_slots": 6_716_530}),
-    "paxos_wan3z_base": dict(protocol="paxos", cfg=SWITCH_CFG, steps=100,
-                             schedule="wan3z", line="switch_path",
+    "paxos_wan3z_base": dict(bench_row("paxos_wan3z_base"),
+                             line="switch_path",
                              metric="paxos_slots_per_sec",
                              expect={"committed_slots": 4_355_335}),
     # the reference itself violates here at 100k groups (74 oracle and
@@ -276,23 +349,27 @@ SWITCH_ROWS = {
 NOGAP_STEPS, NOGAP_SMALL_GROUPS = 80, 16
 # the demo kernels' hunt cases (DEMO_CASES): (config, schedules, groups,
 # steps); every schedule must violate
-DEMO_CASES = {"fragile_counter": (dict(n_replicas=3), ("hunt_drop",), 8, 30),
-              "relay_churn": (dict(n_replicas=3), ("churn", "wan3z_churn"),
-                              8, 60)}
+
+
+def schedule_key(fuzz) -> str:
+    return next(k for k, v in SCHEDULE_ARGS.items() if v == fuzz)
+
+
+DEMO_CASES = {c[0]: (cfg_kwargs(c[1]), tuple(map(schedule_key, c[2])),
+                     c[3], c[4])
+              for c in hunt_cases.DEMO_CASES
+              if c[0] in ("fragile_counter", "relay_churn")}
 SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 20
 # bench_all.py's FUZZ schedule (blockchain_forks)
-BENCH_FUZZ_ARGS = dict(p_drop=0.1, p_dup=0.05, max_delay=2, p_partition=0.1,
-                       window=16)
-# the seeded twins (paxi_tpu/hunt/cases.py BUG_DEMO and DEMO_CASES), under
-# DROP, at GROUPS x TWIN_STEPS; card against CPU at TWIN_SMALL_GROUPS
-TWIN_CFGS = {"wankeeper_nofloor": dict(n_replicas=6, n_zones=2, n_objects=2,
-                                       n_slots=16, locality=0.1),
-             "bpaxos_noread": dict(n_replicas=7, n_slots=16)}
-TWIN_DROP_ARGS = dict(p_drop=0.25, max_delay=2)
-# the hunt's PART and KILL (paxi_tpu/hunt/cases.py:24-25)
-HUNT_PART_ARGS = dict(p_partition=0.3, p_crash=0.15, max_delay=2, window=8)
-HUNT_KILL_ARGS = dict(p_drop=0.1, max_delay=2, perm_crash=0,
-                      perm_crash_at=25)
+BENCH_FUZZ_ARGS = non_default(bench_all.FUZZ)
+# the seeded twins (hunt/cases.py BUG_DEMO and DEMO_CASES), under DROP, at
+# GROUPS x TWIN_STEPS; card against CPU at TWIN_SMALL_GROUPS
+TWIN_CFGS = {"wankeeper_nofloor": hunt_cfg("wankeeper_nofloor", 6),
+             "bpaxos_noread": hunt_cfg("bpaxos_noread", 7)}
+TWIN_DROP_ARGS = non_default(hunt_cases.DROP)
+# the hunt's PART and KILL
+HUNT_PART_ARGS = non_default(hunt_cases.PART)
+HUNT_KILL_ARGS = non_default(hunt_cases.KILL)
 TWIN_STEPS, TWIN_SMALL_GROUPS = 80, 16
 # phase 6's sharded card-against-CPU runs
 SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
@@ -309,8 +386,7 @@ PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
 # phase 5: the hunt's seeded-bug case (paxi_tpu/hunt/cases.py,
 # wpaxos_thinq1 under GEO3Z: p_drop 0.05 inside the wan3z zone-latency
 # matrix), captured and replayed at GROUPS, shrunk at the hunt's 16 groups
-WITNESS_CFG = dict(n_replicas=9, n_zones=3, n_objects=4, n_slots=16,
-                   steal_threshold=2, locality=0.3)
+WITNESS_CFG = hunt_cfg("wpaxos_thinq1", 9)
 WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 40, 0.05
 # bench_all.py's wpaxos_wan3z_geo row: wpaxos 3 x 3 under wan3z alone
 SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
@@ -318,9 +394,7 @@ SCENARIO_STEPS = 100
 CHECKPOINT_SPLIT = 52                # of the paxos path's 104 fuzzed steps
 SCRATCH_DIR = "build/chip_smoke"     # trace and checkpoint files
 # phase 7: bench_all.py's workload matrix (_wl_cfgs) at GROUPS groups
-WL_CFGS = {"paxos": dict(n_replicas=3, n_slots=16, n_keys=64),
-           "wpaxos": dict(n_replicas=9, n_zones=3, n_slots=16, n_keys=32,
-                          n_objects=16, steal_threshold=4, locality=0.8)}
+WL_CFGS = {r[1]: cfg_kwargs(r[2]) for r in bench_all._wl_cfgs(DEVICE)}
 WL_NAMES = ("uniform", "zipf99", "flash")
 # wpaxos cut from bench_all's 120 steps to 60 for time (PERF.md section
 # 4); 60 still holds flash's first surge, steps 30-41
@@ -334,6 +408,29 @@ WL_EXPECT = {("paxos", "uniform"): 116 * GROUPS,
 WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 12
 WL_SHARD_GROUPS, PG_SHARD_GROUPS = 256, 257  # 257: three pad groups
 PG_PIN = dict(group=131, steps=SMALL_STEPS)  # the sharded pinned replay
+# phase 10: the drivers.  The CLI's main path is bench.py's north star
+# (PATHS["paxos"] at GROUPS); a short subprocess runs ``__main__``
+CLI_ARGV = ["sim", "-algorithm", "paxos", "-groups", str(GROUPS),
+            "-replicas", str(REPLICAS), "-slots", "64", "-steps", "104"]
+CLI_SUBPROCESS_ARGV = ["sim", "-algorithm", "paxos", "-groups", "1024",
+                       "-replicas", "5", "-slots", "64", "-steps", "20"]
+# the hunt micro-campaign: seed 0 of the nogap case (16 groups x 80 under
+# DROP) violates, so a budget of 1 finds a witness; phase 9 saves its
+# 100k seqchurn witness into WITNESS_DIR, the campaign's corpus seed
+HUNT_ARGV = ["--protocols", "switchpaxos,switchpaxos_nogap", "--budget", "1",
+             "--quick", "--shrink-trials", "4", "--no-host"]
+WITNESS_DIR = SCRATCH_DIR + "/traces"
+HUNT_DIR = SCRATCH_DIR + "/hunt"
+# bench_all's paxos_3rep at its own card shape (16,384 groups x 104 steps):
+# fault-free paxos commits steps - 4 slots a group (the JAX package's
+# count on the CPU: ``scripts/reference_counts.py bench_paxos_3rep``)
+DRIVER_ROWS = {
+    "bench_paxos_3rep": dict(
+        bench_row("paxos_3rep"), groups=BENCH_ROWS["paxos_3rep"][4],
+        expect={"committed_slots": BENCH_ROWS["paxos_3rep"][4] * (104 - 4)}),
+}
+# fuzz_soak's record of paxos x DROP x seed 0 at the case's 64 x 150
+SOAK_CASE = ("paxos", "drop", 0)
 
 
 def log(msg: str) -> None:
@@ -889,18 +986,7 @@ def schedule_of(name: str):
     matrix alone), ``bench_fuzz`` (bench_all.py's FUZZ), or one of the
     hunt's (``hunt_drop``, ``seqchurn_drop``, ``part``, ``kill``,
     ``churn``, ``wan3z_churn``)."""
-    from paxi_tpu_torch.scenarios import NAMED, with_scenario
-    from paxi_tpu_torch.sim import FAULT_FREE, FuzzConfig
-    return {"fault_free": FAULT_FREE,
-            "wan3z": with_scenario(FAULT_FREE, NAMED["wan3z"]),
-            "bench_fuzz": FuzzConfig(**BENCH_FUZZ_ARGS),
-            # the hunt's DROP; seqchurn's down windows ride in the config
-            "hunt_drop": FuzzConfig(**TWIN_DROP_ARGS),
-            "seqchurn_drop": FuzzConfig(**TWIN_DROP_ARGS),
-            "part": FuzzConfig(**HUNT_PART_ARGS),
-            "kill": FuzzConfig(**HUNT_KILL_ARGS),
-            "churn": FuzzConfig(scenario=NAMED["churn"]),
-            "wan3z_churn": FuzzConfig(scenario=NAMED["wan3z_churn"])}[name]
+    return {**SCHEDULE_ARGS, "seqchurn_drop": hunt_cases.DROP}[name]
 
 
 # metrics a row prints beside its counts where its protocol has them
@@ -1556,13 +1642,15 @@ def workload_sharded_lines(pg, card_small, pg_ref, smi: str):
 # ---- phase 8: the protocols of slice 8 and their seeded twins ----------
 
 def capture_replay_phase(name: str, cfg_kw, fuzz_args, steps: int,
-                         smi: str, line: str = "twin_path"):
+                         smi: str, line: str = "twin_path",
+                         save_as: str = ""):
     """A kernel that violates at GROUPS groups under ``fuzz_args`` (a
     seeded twin, or a row whose reference run violates): captured (every
     group's schedule recorded on the card; a violating group must be
     found) and replayed once to the capture's hash, counters, histogram
-    and violations.  Returns the capture's and the replay's launch
-    counts."""
+    and violations; with ``save_as`` the trace is saved under that path.
+    Returns the capture's and the replay's launch counts and the trace's
+    schedule hash."""
     from paxi_tpu_torch import trace as T
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.sim import FuzzConfig, SimConfig
@@ -1607,9 +1695,13 @@ def capture_replay_phase(name: str, cfg_kw, fuzz_args, steps: int,
         "recorded_schedule_bytes": sched_bytes * GROUPS,
         "peak_memory_bytes": peak, "kernels": capture_launches,
         "state_hash": r.state_hash, "device": smi}))
+    if save_as:
+        import os
+        os.makedirs(os.path.dirname(save_as), exist_ok=True)
+        T.save(save_as, tr_)
     del tr_, r
     torch.cuda.empty_cache()
-    return capture_launches, replay_launches
+    return capture_launches, replay_launches, m["schedule_hash"]
 
 
 def twin_phase(smi: str):
@@ -1705,6 +1797,190 @@ def slice9_small_phase():
     for name, (cfg_kw, scheds, groups, steps) in DEMO_CASES.items():
         for sched in scheds:
             card_vs_cpu_case(name, cfg_kw, sched, groups, steps, True)
+
+
+# ---- phase 10: the drivers -------------------------------------------------
+
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def cli_phase(smi: str):
+    """The CLI's main path in-process at full width (held to 10,000,000
+    committed slots, 0 violations, one launch of each exchange half a
+    step), then ``python -m paxi_tpu_torch`` in a short subprocess."""
+    from paxi_tpu_torch import cli
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = captured(cli.main, CLI_ARGV)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    line = json.loads(out)
+    steps = PATHS["paxos"]["steps"]
+    log("cli_path " + json.dumps({
+        "argv": CLI_ARGV, "rc": rc,
+        "committed_slots": line["committed_slots"],
+        "invariant_violations": line["invariant_violations"],
+        "inscan_violations": line["inscan_violations"],
+        "committed_paxos_slots_per_sec": line["committed_slots"] / wall_s,
+        "wall_s": wall_s, "kernels": launches, "device": smi}))
+    if rc != 0 or line["invariant_violations"] != 0 \
+            or line["inscan_violations"] != 0:
+        fail(f"cli sim: rc {rc}, violations {line['invariant_violations']}")
+    if line["committed_slots"] != PATHS["paxos"]["expect"](steps):
+        fail(f"cli sim committed {line['committed_slots']}")
+    expect_launches("cli main path", launches, steps)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paxi_tpu_torch"] + CLI_SUBPROCESS_ARGV,
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    sub = json.loads(proc.stdout.strip().splitlines()[-1]) \
+        if proc.returncode == 0 else {}
+    log("cli_subprocess " + json.dumps({
+        "argv": CLI_SUBPROCESS_ARGV, "rc": proc.returncode,
+        "committed_slots": sub.get("committed_slots"),
+        "invariant_violations": sub.get("invariant_violations"),
+        "wall_s": time.perf_counter() - t0}))
+    if proc.returncode != 0 or sub["committed_slots"] != 16 * 1024 \
+            or sub["invariant_violations"] != 0:
+        fail(f"python -m paxi_tpu_torch sim: rc {proc.returncode}, "
+             f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    return launches
+
+
+def hunt_campaign_phase(witness_hash: str, smi: str):
+    """``hunt run`` on the card: the nogap witness captured, shrunk and
+    replayed to its hash, nothing unclassified, phase 9's 100k seqchurn
+    witness classified through the backlog (its coverage on a line of its
+    own), and each run's violations and progress equal to the same
+    (case, seed) run on the CPU."""
+    import shutil
+    from paxi_tpu_torch import cli
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch import trace as T
+    from paxi_tpu_torch.hunt import Corpus
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import make_run
+
+    shutil.rmtree(HUNT_DIR, ignore_errors=True)
+    argv = ["hunt", "run", "--dir", HUNT_DIR, "--traces-dir", WITNESS_DIR] \
+        + HUNT_ARGV
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = captured(cli.main, argv)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(HUNT_DIR + "/state.json") as f:
+        state = json.load(f)
+    with open(HUNT_DIR + "/HUNT_REPORT.json") as f:
+        totals = json.load(f)["summary"]["totals"]
+    log("hunt_campaign " + json.dumps({
+        "argv": argv, "rc": rc, "totals": totals, "runs": state["runs"],
+        "wall_s": wall_s, "kernels": launches, "device": smi}))
+    if rc != 0 or totals["unclassified"] != 0:
+        fail(f"hunt run: rc {rc}, totals {totals}\n{out[-2000:]}")
+    if not (launches["wheel_deliver"] > 0 and launches["wheel_insert"] > 0):
+        fail(f"hunt run launched no exchange kernel: {launches}")
+
+    cases = hunt_cases.hunt_cases(["switchpaxos", "switchpaxos_nogap"],
+                                  quick=True)
+    for run in state["runs"]:
+        name, cfg, scheds, groups, steps, pkey = \
+            cases[run["protocol"]][int(run["run"].split(":")[0])]
+        fz = next(f for f in scheds
+                  if hunt_cases.sched_name(f) == run["schedule"])
+        _, metrics, viols = make_run(sim_protocol(name), cfg, fz,
+                                     device="cpu")(
+            tr.PRNGKey(run["seed"]), groups, steps)
+        cpu = (int(viols), int(metrics[pkey]))
+        if cpu != (run["violations"], run["progress"]):
+            fail(f"hunt run {run['protocol']} {run['run']}: card "
+                 f"{(run['violations'], run['progress'])}, CPU {cpu}")
+
+    corpus = Corpus(HUNT_DIR + "/corpus")
+    caught = [r.get("witness") for r in state["runs"]
+              if r["protocol"] == "switchpaxos_nogap"]
+    nogap = [w for w in state["witnesses"].values()
+             if w["capture"] in caught]
+    if len(nogap) != 1:
+        fail(f"hunt run: {len(nogap)} nogap witnesses from its runs")
+    w = nogap[0]
+    if not (w["capture"] in corpus and w["minimal"] in corpus
+            and w["events_after"] <= w["events_before"]):
+        fail(f"hunt run: the nogap witness was not captured and shrunk: {w}")
+    mini = corpus.load(w["minimal"])
+    r = T.replay(mini, device=DEVICE)
+    if r.state_hash != mini.meta["replay_state_hash"] \
+            or r.violations != mini.meta["group_violations"]:
+        fail("hunt run: the shrunk nogap witness replays to another state")
+    backlog = state["witnesses"].get(witness_hash)
+    if backlog is None or "coverage" not in backlog["classification"]:
+        fail("hunt run: the 100k seqchurn witness was not classified")
+    c = backlog["classification"]
+    log("hunt_witness_coverage " + json.dumps({
+        "witness": witness_hash, "protocol": backlog["protocol"],
+        "origin": corpus.index[witness_hash]["origin"],
+        "violations": backlog["violations"],
+        "events": backlog["events_before"], "outcome": c["outcome"],
+        "reason": c["reason"], **c["coverage"]}))
+    log("hunt_nogap_witness " + json.dumps({
+        "capture": w["capture"], "minimal": w["minimal"],
+        "violations": w["violations"], "events_before": w["events_before"],
+        "events_after": w["events_after"],
+        "outcome": w["classification"]["outcome"],
+        "replay_state_hash": r.state_hash, "replay_equal": True}))
+    return launches
+
+
+def bench_twin_phase(smi: str):
+    """bench_all's paxos_3rep row at its card shape through the twin's
+    own line function (a warm run, then the timed run), held to its
+    count with one launch of each exchange half a step a run."""
+    spec = DRIVER_ROWS["bench_paxos_3rep"]
+    row = BENCH_ROWS["paxos_3rep"]
+    reset_launch_counts()
+    line = bench_all.protocol_line(row, device=DEVICE)
+    launches = launch_counts()
+    log("bench_all_path " + json.dumps({**line, "kernels": launches,
+                                        "nvidia_smi": smi}))
+    for k, want in spec["expect"].items():
+        if line[k] != want:
+            fail(f"bench_all paxos_3rep: {k} {line[k]}, expected {want}")
+    if line["invariant_violations"] or line.get("inscan_violations"):
+        fail("bench_all paxos_3rep: safety violations")
+    expect_launches("bench_all paxos_3rep", launches, 2 * spec["steps"])
+    return launches
+
+
+def soak_twin_phase(smi: str):
+    """fuzz_soak's record of one (case, schedule, seed) on the card and on
+    the CPU: equal apart from ``wall_s``, 0 violations."""
+    from paxi_tpu_torch import fuzz_soak
+    name, sched, seed = SOAK_CASE
+    case = next(c for c in hunt_cases.CASES if c[0] == name)
+    fz = next(f for f in case[2] if hunt_cases.sched_name(f) == sched)
+    args = (name, case[1], fz, seed, case[3], case[4], case[5])
+    reset_launch_counts()
+    card = fuzz_soak.soak_record(*args, device=DEVICE)
+    launches = launch_counts()
+    cpu = fuzz_soak.soak_record(*args, device="cpu")
+    log("fuzz_soak_path " + json.dumps({**card, "cpu_wall_s": cpu["wall_s"],
+                                        "kernels": launches,
+                                        "device": smi}))
+    card.pop("wall_s")
+    cpu.pop("wall_s")
+    if card != cpu:
+        fail(f"fuzz_soak record: card {card} != CPU {cpu}")
+    if card["violations"] != 0:
+        fail("fuzz_soak record: violations")
+    expect_launches("fuzz_soak record", launches, case[4])
+    return launches
 
 
 # ---- phase 6: four ranks on the one card ---------------------------------
@@ -2092,7 +2368,8 @@ def main() -> int:
     seqchurn_launches = capture_replay_phase(
         "switchpaxos", SEQCHURN_CFG, TWIN_DROP_ARGS,
         SWITCH_ROWS["switchpaxos_seqchurn"]["steps"], smi,
-        line="switch_witness")
+        line="switch_witness",
+        save_as=WITNESS_DIR + "/switchpaxos_seqchurn_100k")
     slice9_small_phase()
     for row in SWITCH_ROWS:
         spec = SWITCH_ROWS[row]
@@ -2101,12 +2378,22 @@ def main() -> int:
                          schedule_of(spec["schedule"]), spec["schedule"])
     torch.cuda.empty_cache()
     t9 = time.perf_counter() - t9
+
+    # 10. the drivers: the CLI's main path, the hunt campaign, one
+    # bench_all row and one fuzz_soak record through the twins
+    t10 = time.perf_counter()
+    driver_launches = {"cli_main_path": cli_phase(smi),
+                       "hunt_campaign": hunt_campaign_phase(
+                           seqchurn_launches[2], smi),
+                       "bench_all_paxos_3rep": bench_twin_phase(smi),
+                       "fuzz_soak_paxos_drop": soak_twin_phase(smi)}
+    t10 = time.perf_counter() - t10
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
-        "slice8_protocols": t8, "slice9_switchpaxos": t9,
+        "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 10. the kernel summary: launches from the epaxos main path (the one
+    # 11. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
@@ -2123,7 +2410,8 @@ def main() -> int:
                    "nogap_capture": nogap_launches[0][k],
                    "nogap_replay": nogap_launches[1][k],
                    "seqchurn_capture": seqchurn_launches[0][k],
-                   "seqchurn_replay": seqchurn_launches[1][k]}
+                   "seqchurn_replay": seqchurn_launches[1][k],
+                   **{p: n[k] for p, n in driver_launches.items()}}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),

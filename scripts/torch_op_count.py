@@ -23,7 +23,13 @@ rows) under its own schedule.  ``--config wan3z`` takes bench_all.py's
 switchnet pair geometry (3 replicas, 32 slots) under the wan3z matrix
 alone, ``--config seqchurn`` the hunt's switchpaxos case (5 replicas, 32
 slots, the seqchurn sequencer windows) under DROP; each also counts a
-fault-free round.  The count is the same at any group count.  On the card the
+fault-free round.  ``--sweep soak|bench|workload`` counts a round of every
+row of the fuzz soak twin (every hunt case under each of its schedules),
+of the bench_all twin's protocol rows or of its workload matrix, and
+prints one JSON line a row with its runs and steps, then a total:
+operators a sweep dispatches (runs x steps x operators a step), the
+basis of a sweep's predicted time at a measured cost an operator.  The
+count is the same at any group count.  On the card the
 lane-major exchange launches its two kernels where the CPU runs their
 plain versions' operators (a few dozen a message type), so the card
 dispatches slightly fewer a step.
@@ -76,6 +82,42 @@ def ops_a_step(proto, cfg, fuzz, groups: int, warm: int) -> int:
     return count.n
 
 
+def sweep_counts(which: str, groups: int, warm: int) -> int:
+    """One JSON line a row of a driver twin's sweep, then the total."""
+    from paxi_tpu_torch import bench_all
+    from paxi_tpu_torch.hunt import cases as hc
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import FAULT_FREE
+    from paxi_tpu_torch.workload import apply_workload, named_workload
+
+    rows = []   # (label, protocol, cfg, fuzz, runs, steps, groups)
+    if which == "soak":
+        for name, cfg, scheds, g, steps, _ in hc.CASES:
+            for fz in scheds:
+                rows.append((f"{name}/{hc.sched_name(fz)}", name, cfg, fz,
+                             len(hc.SEEDS), steps, g))
+    elif which == "bench":
+        for label, name, cfg, fz, g, steps, _, _ in bench_all._cfgs("cuda"):
+            rows.append((label, name, cfg, fz, 2, steps, g))
+    else:
+        for label, name, cfg, wl, g, steps, _, _ in \
+                bench_all._wl_cfgs("cuda"):
+            rows.append((label, name, apply_workload(cfg, named_workload(wl)),
+                         FAULT_FREE, 2, steps, g))
+    total = 0
+    for label, name, cfg, fz, runs, steps, g in rows:
+        n = ops_a_step(sim_protocol(name), cfg, fz, groups, warm)
+        total += runs * steps * n
+        print(json.dumps({"row": label, "protocol": name, "runs": runs,
+                          "steps": steps, "groups_on_the_card": g,
+                          "ops_a_step": n, "ops": runs * steps * n}),
+              flush=True)
+    print(json.dumps({"sweep": which, "rows": len(rows),
+                      "ops_total": total,
+                      "device": "cpu (a count, not a time)"}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--protocol", default="wpaxos_thinq1")
@@ -90,7 +132,11 @@ def main() -> int:
     ap.add_argument("--row", default=None,
                     help="a chip_smoke.py PROTO_ROWS or SWITCH_ROWS row, "
                     "under its own schedule")
+    ap.add_argument("--sweep", choices=("soak", "bench", "workload"),
+                    default=None, help="every row of a driver twin's sweep")
     args = ap.parse_args()
+    if args.sweep:
+        return sweep_counts(args.sweep, args.groups, args.warm)
 
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.scenarios import NAMED

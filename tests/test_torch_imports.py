@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "paxi_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/torch_step_profile.py",
-       "scripts/torch_ab.py", "scripts/torch_op_count.py"]
+       "scripts/torch_ab.py", "scripts/torch_op_count.py",
+       "scripts/torch_invariant_terms.py"]
 BANNED = ("jax", "jaxlib", "paxi_tpu")
 
 
@@ -41,7 +42,11 @@ def test_files_found():
                    "sim/checkpoint.py", "metrics/registry.py",
                    "workload/spec.py", "workload/compile.py",
                    "workload/__init__.py", "sim/mailbox_pg.py",
-                   "protocols/paxos/sim_pg.py"):
+                   "protocols/paxos/sim_pg.py", "__main__.py", "cli.py",
+                   "profiling.py", "fuzz_soak.py", "bench_all.py",
+                   "trace/host.py", "hunt/__init__.py", "hunt/cases.py",
+                   "hunt/corpus.py", "hunt/classify.py", "hunt/report.py",
+                   "hunt/engine.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
