@@ -124,7 +124,22 @@ non-zero exit code and no result line:
    (16,384 groups x 104 steps: 1,638,400 committed); and the
    ``fuzz_soak`` twin's record of paxos x DROP x seed 0 (64 x 150) equal
    to the CPU's;
-11. the kernel summary line, the ``nvidia-smi`` line, and last the result
+11. the bench twin and the sliding-window twins (slice 11): ``python -m
+   paxi_tpu_torch.bench`` as a subprocess at the north star (10,000,000
+   committed, 0 and 0 violations, exit code 0, the committed slots and
+   latency histogram of phase 4's ``main_path``), its sweep (256, 4,096
+   and 32,768 groups x 36 steps: 32 slots a group each, written under
+   ``build/bench/``), then the worker in-process with the launches of its
+   timed run counted (104 of each exchange half); the layout A/B,
+   ``--kernel paxos_sw`` beside ``paxos`` at the same shape (equal
+   committed slots, violations and latency sum; each one's rate and
+   ``scripts/torch_step_profile.py`` profile, and ``paxos_sw``'s step
+   split beside phase 4's of ``paxos``); the other four
+   twins at their fixed-cell rows' shapes, seeds and counts
+   (``SW_ROWS``); every twin card against CPU at 64 x 20 under DROP; and
+   ``python -m paxi_tpu_torch.workload.demo`` on the card, its four
+   stage lines equal to the CPU's;
+12. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -141,6 +156,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -431,6 +447,29 @@ DRIVER_ROWS = {
 }
 # fuzz_soak's record of paxos x DROP x seed 0 at the case's 64 x 150
 SOAK_CASE = ("paxos", "drop", 0)
+# phase 11: the bench twin (``python -m paxi_tpu_torch.bench``, the north
+# star: PATHS["paxos"] at GROUPS), its sweep (36 steps: steps 5-36 commit
+# one slot a group each), the layout A/B (``--kernel paxos_sw``) and each
+# other sliding-window twin at its fixed-cell row's shape, seed and count
+# (the JAX package's sim_sw equals its sim there at 512 groups:
+# ``scripts/reference_counts.py --sw ROW``)
+BENCH_SWEEP = (256, 4096, 32768)
+BENCH_SWEEP_STEPS = 36
+PROFILE_STEPS = 4                    # torch_step_profile's warm and timed
+SW_ROWS = {
+    "sdpaxos_sw": dict(NEW_PATHS["sdpaxos"], protocol="sdpaxos_sw"),
+    "wpaxos_sw": dict(NEW_PATHS["wpaxos"], protocol="wpaxos_sw"),
+    "wankeeper_sw": dict(PROTO_ROWS["wankeeper_zones"],
+                         protocol="wankeeper_sw"),
+    "bpaxos_sw": dict(PROTO_ROWS["bpaxos_grid"], protocol="bpaxos_sw"),
+}
+for _row in SW_ROWS.values():
+    _row["line"] = "sw_twin"
+# every twin card against CPU at 64 x 20 under the hunt's DROP, at its
+# row's configuration (paxos_sw at the main path's)
+SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 20
+SW_SMALL_CFGS = {"paxos_sw": PATHS["paxos"]["cfg"],
+                 **{k: r["cfg"] for k, r in SW_ROWS.items()}}
 
 
 def log(msg: str) -> None:
@@ -815,9 +854,9 @@ def card_vs_cpu_case(name: str, cfg_kw, sched: str, groups: int,
     """One run on the CPU and on the card from the same seed, equal on
     every plane, metric and violation count; a seeded twin or demo must
     violate (``violate``), any other kernel must not."""
-    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.profiling import resolve_kernel
     from paxi_tpu_torch.sim import SimConfig, simulate
-    proto, cfg, fuzz = sim_protocol(name), SimConfig(**cfg_kw), \
+    proto, cfg, fuzz = resolve_kernel(name), SimConfig(**cfg_kw), \
         schedule_of(sched)
     t0 = time.perf_counter()
     runs = [simulate(proto, cfg, groups, steps, fuzz, seed=SEED, device=d)
@@ -1000,14 +1039,14 @@ def new_path_run(key: str, smi: str, paths=None):
     """A new kernel's single-card run at 100,000 groups under its row's
     schedule, with its rate; each count and the launch counts (read around
     the run) must be the expected ones."""
-    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.profiling import resolve_kernel
     from paxi_tpu_torch.scenarios import latency_split
     from paxi_tpu_torch.sim import SimConfig, simulate
 
     spec = (NEW_PATHS if paths is None else paths)[key]
     name = spec.get("protocol", key)
     sched = spec.get("schedule", "fault_free")
-    proto, cfg = sim_protocol(name), SimConfig(**spec["cfg"])
+    proto, cfg = resolve_kernel(name), SimConfig(**spec["cfg"])
     fuzz = schedule_of(sched)
     steps = spec["steps"]
     torch.cuda.reset_peak_memory_stats()
@@ -1983,6 +2022,172 @@ def soak_twin_phase(smi: str):
     return launches
 
 
+# ---- phase 11: the bench twin, the layout A/B, the sliding-window twins ---
+
+ROOT = Path(__file__).resolve().parent
+
+
+def bench_in_process(kernel: str):
+    """``paxi_tpu_torch.bench.worker`` in this process for ``kernel``, no
+    sweep, with the launch counts set to 0 just before its timed run and
+    read just after: ``(exit code, line, launches)``."""
+    from paxi_tpu_torch import bench
+    env = {"BENCH_SCALING": "0", "BENCH_KERNEL": kernel}
+    saved = {k: os.environ.get(k) for k in env}
+    launches = {}
+
+    @contextlib.contextmanager
+    def timed():
+        reset_launch_counts()
+        yield
+        launches.update(launch_counts())
+
+    os.environ.update(env)
+    try:
+        rc, out = captured(lambda: bench.worker(device=DEVICE, timed=timed))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, json.loads(out.strip().splitlines()[-1]), launches
+
+
+def north_star_bench_phase(main_row: dict, smi: str):
+    """``python -m paxi_tpu_torch.bench`` as a user runs it (a subprocess,
+    the card's default shape): its line held to the main path's count,
+    violations and latency histogram (phase 4's ``main_path``), exit code
+    0; its sweep to 32 slots a group at each point; then the worker again
+    in-process, the launches of its timed run counted (one of each
+    exchange half a step).  Returns the in-process line and launches."""
+    steps = PATHS["paxos"]["steps"]
+    want = PATHS["paxos"]["expect"](steps)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "paxi_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=str(ROOT))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m paxi_tpu_torch.bench: rc {proc.returncode}\n"
+             f"{proc.stdout[-1000:]}\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    curve = json.loads(proc.stderr.split("bench-scaling: ")[1]
+                       .splitlines()[0])
+    rc, again, launches = bench_in_process("paxos")
+    log("bench_twin " + json.dumps({
+        **line, "rc": proc.returncode, "subprocess_wall_s": wall_s,
+        "in_process": {k: again[k] for k in (
+            "value", "committed_slots", "wall_s", "compile_s", "warmup_s",
+            "invariant_violations", "inscan_violations")},
+        "kernels_timed_run": launches, "nvidia_smi": smi}))
+    log("bench_scaling " + json.dumps(curve))
+    backend = "cuda" if torch.device(DEVICE).type == "cuda" else "plain"
+    for got in (line, again):
+        if got["committed_slots"] != want or got["steps"] != steps \
+                or got["groups"] != GROUPS or got["kernel"] != "paxos" \
+                or got["backend"] != backend:
+            fail(f"bench twin line {got}")
+        if got["invariant_violations"] != 0 or got["inscan_violations"] != 0:
+            fail("bench twin: safety violations")
+        if got["committed_slots"] != main_row["committed_slots"] \
+                or got["commit_latency"] != main_row["commit_latency"]:
+            fail(f"bench twin: {got['commit_latency']} != main path "
+                 f"{main_row['commit_latency']}")
+    if rc != 0:
+        fail(f"bench twin in-process: rc {rc}")
+    expect_launches("bench twin timed run", launches, steps)
+    points = curve["points"]
+    if [p["groups"] for p in points] != list(BENCH_SWEEP) + [GROUPS]:
+        fail(f"bench sweep points {points}")
+    for p in points[:-1]:
+        if p["steps"] != BENCH_SWEEP_STEPS \
+                or p["committed"] != (BENCH_SWEEP_STEPS - 4) * p["groups"]:
+            fail(f"bench sweep point {p}")
+    if not (ROOT / "build" / "bench" / "BENCH_SCALING.json").exists():
+        fail("bench sweep: no build/bench/BENCH_SCALING.json")
+    return again, launches
+
+
+def layout_ab_phase(paxos_line: dict, smi: str):
+    """``--kernel paxos_sw`` beside ``--kernel paxos`` at the north star
+    (one in-process worker call each, in this order): equal committed
+    slots, violations and commit-latency sum, each with its rate; then
+    ``paxos_sw``'s step split (CUDA events between the runner's stages;
+    ``paxos``'s is phase 4's) and each one's profile
+    (``scripts/torch_step_profile.py``)."""
+    from paxi_tpu_torch.profiling import resolve_kernel
+    from paxi_tpu_torch.sim import FAULT_FREE, SimConfig
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_step_profile
+
+    rc, sw_line, launches = bench_in_process("paxos_sw")
+    # the commit-latency sum (the histogram snapshot's, in seconds of one
+    # round each); the sample count may differ (the pending plane)
+    lat = {k: line["sim_metrics"]["histograms"][0]["sum"]
+           for k, line in (("paxos", paxos_line), ("paxos_sw", sw_line))}
+    log("layout_ab " + json.dumps({
+        "paxos": {k: paxos_line[k] for k in (
+            "value", "committed_slots", "wall_s", "invariant_violations",
+            "inscan_violations", "commit_latency")},
+        "paxos_sw": {k: sw_line[k] for k in (
+            "value", "committed_slots", "wall_s", "invariant_violations",
+            "inscan_violations", "commit_latency")},
+        "sw_over_fixed_wall": sw_line["wall_s"] / paxos_line["wall_s"],
+        "commit_lat_sum": lat, "kernels_timed_run_sw": launches,
+        "groups": GROUPS, "steps": sw_line["steps"], "device": smi}))
+    if rc != 0 or sw_line["invariant_violations"] \
+            or sw_line["inscan_violations"]:
+        fail(f"paxos_sw: rc {rc}, violations")
+    if sw_line["committed_slots"] != paxos_line["committed_slots"] \
+            or lat["paxos"] != lat["paxos_sw"]:
+        fail(f"layout A/B: paxos_sw {sw_line['committed_slots']}, "
+             f"{lat['paxos_sw']} != paxos {paxos_line['committed_slots']}, "
+             f"{lat['paxos']}")
+    expect_launches("paxos_sw timed run", launches, sw_line["steps"])
+    # paxos's step split is phase 4's (the same configuration)
+    step_split_phase("paxos_sw", resolve_kernel("paxos_sw"),
+                     SimConfig(**PATHS["paxos"]["cfg"]), FAULT_FREE,
+                     "fault_free")
+    for kname in ("paxos", "paxos_sw"):
+        rows, summary = torch_step_profile.profile_steps(
+            kname, GROUPS, steps=PROFILE_STEPS, top=8)
+        log("layout_ab_profile " + json.dumps({
+            **summary, "top": [dict(f, kind=k) for k, f in rows]}))
+        torch.cuda.empty_cache()
+    return launches
+
+
+def sw_small_phase():
+    """Every sliding-window twin at its row's configuration, card against
+    CPU at 64 x 20 under the hunt's DROP: equal state, metrics (the
+    ``net_*`` counters among them) and violations, and no violation."""
+    for name, cfg_kw in SW_SMALL_CFGS.items():
+        card_vs_cpu_case(name, cfg_kw, "hunt_drop", SW_SMALL_GROUPS,
+                         SW_SMALL_STEPS, violate=False)
+
+
+def workload_demo_phase():
+    """``python -m paxi_tpu_torch.workload.demo`` on the card (its own
+    asserts run there): its four stage lines equal the CPU's."""
+    from paxi_tpu_torch.workload import demo
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paxi_tpu_torch.workload.demo"],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    card_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"workload demo: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    rc, cpu = captured(demo.main, ["--device", "cpu"])
+    card = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    cpu = [json.loads(x) for x in cpu.strip().splitlines()]
+    log("workload_demo " + json.dumps({
+        "stages": [x["stage"] for x in card], "equal_to_cpu": card == cpu,
+        "steals": card[-1].get("steals"), "card_wall_s": card_s}))
+    if rc != 0 or len(card) != 4 or card != cpu:
+        fail(f"workload demo: card {card} != CPU {cpu}")
+
+
 # ---- phase 6: four ranks on the one card ---------------------------------
 
 def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
@@ -2388,12 +2593,25 @@ def main() -> int:
                        "bench_all_paxos_3rep": bench_twin_phase(smi),
                        "fuzz_soak_paxos_drop": soak_twin_phase(smi)}
     t10 = time.perf_counter() - t10
+
+    # 11. the bench twin and its sweep, the layout A/B, the other
+    # sliding-window twins at their rows' counts, every twin card against
+    # CPU, the workload demo
+    t11 = time.perf_counter()
+    bench_line, bench_launches = north_star_bench_phase(free["paxos"], smi)
+    sw_ab_launches = layout_ab_phase(bench_line, smi)
+    sw_rows = {k: new_path_run(k, smi, SW_ROWS) for k in SW_ROWS}
+    torch.cuda.empty_cache()
+    sw_small_phase()
+    workload_demo_phase()
+    t11 = time.perf_counter() - t11
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
+        "slice11_bench_and_sw_twins": t11,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 11. the kernel summary: launches from the epaxos main path (the one
+    # 12. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
@@ -2411,7 +2629,10 @@ def main() -> int:
                    "nogap_replay": nogap_launches[1][k],
                    "seqchurn_capture": seqchurn_launches[0][k],
                    "seqchurn_replay": seqchurn_launches[1][k],
-                   **{p: n[k] for p, n in driver_launches.items()}}
+                   **{p: n[k] for p, n in driver_launches.items()},
+                   "bench_twin_timed_run": bench_launches[k],
+                   "layout_ab_paxos_sw": sw_ab_launches[k],
+                   **{row: r["kernels"][k] for row, r in sw_rows.items()}}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),

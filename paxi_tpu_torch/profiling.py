@@ -9,7 +9,9 @@ on first use), a warm-up run (first-touch allocation), and the best of
 From the best run it derives ``steps_per_s`` and ``slots_per_s``.  Eager
 PyTorch has no lowering or compilation, so ``lower_s``, ``compile_s`` and
 the compiled-HLO op counts are reported as null; the reference's
-``--gathers`` comparison against the frozen layout twins is not ported.
+``--gathers`` comparison against the frozen layout twins (``SW_TWINS``)
+is not ported: their layout A/B is ``python -m paxi_tpu_torch.bench
+--kernel <name>_sw`` beside ``--kernel <name>``.
 ``trace_dir`` wraps the timed runs in ``torch.profiler`` and writes a
 Chrome trace (``trace.json``, for chrome://tracing or Perfetto).
 """
@@ -23,7 +25,36 @@ import time
 
 import torch
 
-__all__ = ["run_profile", "main_json"]
+__all__ = ["run_profile", "main_json", "SW_TWINS", "resolve_kernel"]
+
+# the kernels rewritten onto the fixed-cell layout keep their frozen
+# sliding-window counterpart as ``sim_sw.py``: the equivalence proof's
+# other side, and ``bench --kernel <name>_sw``'s layout A/B.  Not in the
+# ``sim_protocol`` registry, as in the reference.
+SW_TWINS = {
+    "paxos": "paxi_tpu_torch.protocols.paxos.sim_sw",
+    "sdpaxos": "paxi_tpu_torch.protocols.sdpaxos.sim_sw",
+    "wpaxos": "paxi_tpu_torch.protocols.wpaxos.sim_sw",
+    "wankeeper": "paxi_tpu_torch.protocols.wankeeper.sim_sw",
+    "bpaxos": "paxi_tpu_torch.protocols.bpaxos.sim_sw",
+}
+
+
+def resolve_kernel(name: str):
+    """The sim kernel ``name`` names: ``<kernel>_sw`` is the frozen
+    sliding-window twin of a ``SW_TWINS`` kernel, any other name a
+    registered one (``protocols.sim_protocol``)."""
+    import importlib
+
+    from paxi_tpu_torch.protocols import sim_protocol
+    if name.endswith("_sw"):
+        try:
+            module = SW_TWINS[name[:-3]]
+        except KeyError:
+            raise KeyError(f"no sliding-window twin {name!r}; known: "
+                           f"{sorted(k + '_sw' for k in SW_TWINS)}") from None
+        return importlib.import_module(module).PROTOCOL
+    return sim_protocol(name)
 
 
 def _sync(device: torch.device) -> None:

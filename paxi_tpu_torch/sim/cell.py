@@ -42,3 +42,53 @@ def advance_clear(plane, old_base, new_base, fill):
     S = plane.shape[-2]
     drop = cell_abs(old_base, S) < new_base.unsqueeze(-2)
     return torch.where(drop, fill, plane)
+
+
+# ring-shaped state planes of each fixed-cell kernel (slot axis LAST in
+# the runner's group-major final state): the one registry behind the
+# equivalence canonicalizer
+RING_PLANES = {
+    "paxos": ("log_bal", "log_cmd", "log_commit", "log_acks",
+              "proposed"),
+    "sdpaxos": ("log_bal", "log_cmd", "log_commit", "log_acks",
+                "proposed"),
+    "wankeeper": ("log_bal", "log_cmd", "log_commit", "log_acks",
+                  "proposed"),
+    "wpaxos": ("log_bal", "log_cmd", "log_commit", "log_acks",
+               "proposed"),
+    "bpaxos": ("abal", "vbal", "vcmd", "vbsz", "committed", "proposed",
+               "p2_acks"),
+}
+
+
+def canonical_state_np(name, state):
+    """A fixed-cell kernel's group-major final state -> the window-ordered
+    view the sliding-window layout (``protocols/*/sim_sw.py``) stores
+    directly (numpy; ``m_`` planes dropped: they are compared through the
+    metrics).  Tests and tooling only."""
+    import numpy as np
+    base = np.asarray(_np(state["base"]))
+    ring = RING_PLANES[name]
+    return {k: (window_view_np(v, base) if k in ring
+                else np.asarray(_np(v)))
+            for k, v in state.items() if not k.startswith("m_")}
+
+
+def window_view_np(plane, base):
+    """Roll a fixed-cell ring plane to window order (numpy; a gather, so
+    it never runs inside a step).  Takes the runner's group-major final
+    state: slot axis LAST (``(G, R, S)`` / ``(G, R, O, S)``), ``base``
+    matching the leading dims.  ``out[..., i] = plane[..., (base + i) %
+    S]`` holds absolute slot ``base + i``, what ring position ``i`` holds
+    in the sliding-window layout."""
+    import numpy as np
+    plane = np.asarray(_np(plane))
+    base = np.asarray(_np(base))
+    S = plane.shape[-1]
+    idx = (base[..., None] + np.arange(S)) % S
+    return np.take_along_axis(plane, idx, axis=-1)
+
+
+def _np(x):
+    """A tensor as numpy (host copy); anything else as it is."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x

@@ -16,8 +16,9 @@ from paxi_tpu_torch.workload.compile import (FLASH, HOTRANGE, MIGRATE,
                                              apply_workload, class_cuts,
                                              class_plane, class_split,
                                              demand_gate, describe,
-                                             flash_on, icdf_table,
-                                             key_plane, named_workload,
+                                             flash_on, host_sampler,
+                                             icdf_table, key_plane,
+                                             named_workload,
                                              rank_plane, rank_pmf,
                                              read_plane)
 
@@ -26,4 +27,4 @@ __all__ = ["Workload", "FlashCrowd", "CLASSES", "NAMED", "UNIFORM",
            "named_workload", "describe", "apply_workload", "class_cuts",
            "icdf_table", "rank_pmf", "key_plane", "rank_plane",
            "read_plane", "class_plane", "flash_on", "demand_gate",
-           "class_split"]
+           "class_split", "host_sampler"]

@@ -19,8 +19,10 @@ The hash is uint32 arithmetic.  Torch has no uint32 shifts, products or
 compares on every device, so the words are held in int64 and masked; a
 product with a constant of 2**31 or more would pass 2**63, so such
 constants multiply in 16-bit halves (every partial product stays under
-2**48).  The host generators' lowering (``host_sampler``, ``host_rates``)
-belongs to the host runtime and is not ported.
+2**48).  ``host_sampler`` is the same draw in Python ints, for a client
+that generates requests off the device; ``host_rates`` and
+``surge_steps`` belong to the JAX package's host runtime and are not
+ported.
 """
 
 from __future__ import annotations
@@ -280,6 +282,59 @@ def class_hist_planes(state, cls, newly, dt):
             torch.where(mask, dt, 0), dim=axes, dtype=torch.int32)
     out["wl_gid"] = state["wl_gid"]
     return out
+
+
+# ---- host lowering (python ints; the same hash family) --------------------
+
+def _h32i(x: int) -> int:
+    x &= 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & 0xFFFFFFFF
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & 0xFFFFFFFF
+    x ^= x >> 16
+    return x
+
+
+def _draw_ui(wl: Workload, stream: int, i: int, chan: int) -> int:
+    return _h32i((stream * _C_GID) ^ (i * _C_SLOT) ^ (chan * _C_CHAN)
+                 ^ ((wl.seed & 0xFFFFFFFF) * _C_SEED))
+
+
+def host_sampler(wl: Workload, n_keys: int, stream: int = 0):
+    """The per-op draw of a request generator: ``sample(i, surge=...,
+    epoch=...)`` -> ``(key, write, key_class)`` for the i-th op of stream
+    ``stream``, deterministic in (spec, stream, i) and equal to the sim's
+    (group, slot) draws of group ``stream``.  ``surge`` applies the
+    FlashCrowd ``focus`` re-aim; ``epoch`` is the migration epoch."""
+    K = max(int(n_keys), 1)
+    table = icdf_table(wl, K)
+    n_hot, n_warm = class_cuts(wl, K)
+    fl = wl.flash
+    focus_thr = _frac_thr(fl.focus) if fl is not None else 0
+    read_thr = _frac_thr(wl.read_frac)
+    always_read = wl.read_frac >= 1.0
+    never_read = wl.read_frac <= 0.0
+
+    def sample(i: int, surge: bool = False,
+               epoch: int = 0) -> Tuple[int, bool, str]:
+        rank = table[_draw_ui(wl, stream, i, CH_KEY) >> _QSHIFT]
+        if surge and focus_thr \
+                and _draw_ui(wl, stream, i, CH_FOCUS) < focus_thr:
+            rank = _draw_ui(wl, stream, i, CH_HOT) % n_hot
+        key = rank
+        if wl.migrate_every > 0 and epoch:
+            key = (rank + epoch * n_hot) % K
+        if always_read:
+            write = False
+        elif never_read:
+            write = True
+        else:
+            write = _draw_ui(wl, stream, i, CH_READ) >= read_thr
+        cls = CLASSES[0 if rank < n_hot else (1 if rank < n_warm else 2)]
+        return key, write, cls
+
+    return sample
 
 
 # ---- SimConfig plumbing --------------------------------------------------

@@ -21,6 +21,15 @@ and up to ~16 GB here (wan3z).  A row's ``SimConfig`` keyword arguments
 (the first ``paxi_tpu.hunt.cases.CASES`` row of PROTOCOL with a schedule
 named SCHEDULE, at the case's own groups and steps, from ``PRNGKey(SEED)``)
 and, when it violates, the capture's group and schedule hash.
+
+    JAX_PLATFORMS=cpu python3 scripts/reference_counts.py --sw ROW \
+        [--groups N]
+
+``--sw`` runs a phase-11 row (``SW_ROWS``: a frozen sliding-window twin at
+its fixed-cell row's configuration, schedule, steps and seed) through the
+JAX package's ``sim_sw`` and its fixed-cell ``sim`` at ``--groups``
+(default 512) and prints both runs' metrics and whether they are equal:
+the twin's count on the card is the fixed-cell row's only where they are.
 """
 
 from __future__ import annotations
@@ -76,7 +85,54 @@ def soak(protocol: str, schedule: str, seed: int) -> int:
     return 0
 
 
+def _fuzz(chip_smoke, sched: str):
+    from paxi_tpu.scenarios import NAMED, with_scenario
+    from paxi_tpu.sim import FuzzConfig
+    return {"fault_free": FuzzConfig(),
+            "wan3z": with_scenario(FuzzConfig(), NAMED["wan3z"]),
+            "bench_fuzz": FuzzConfig(**chip_smoke.BENCH_FUZZ_ARGS),
+            "hunt_drop": FuzzConfig(**chip_smoke.TWIN_DROP_ARGS),
+            "seqchurn_drop": FuzzConfig(**chip_smoke.TWIN_DROP_ARGS)}[sched]
+
+
+def sw_pair(row: str, groups: int) -> int:
+    """The JAX ``sim_sw`` twin of a phase-11 row beside its fixed-cell
+    kernel, at ``groups`` groups: equal metrics (``commit_lat_n`` aside,
+    which the fixed cells may raise) and violations, or exit code 1."""
+    import importlib
+
+    import chip_smoke
+    import jax.random as jr
+    from paxi_tpu.protocols import sim_protocol
+    from paxi_tpu.sim import SimConfig, make_run
+
+    spec = chip_smoke.SW_ROWS[row]
+    fixed = spec["protocol"][:-3]
+    sw = importlib.import_module(f"paxi_tpu.protocols.{fixed}.sim_sw")
+    fuzz = _fuzz(chip_smoke, spec.get("schedule", "fault_free"))
+    out = {"row": row, "groups": groups, "steps": spec["steps"]}
+    t0 = time.perf_counter()
+    for key, proto in (("sim_sw", sw.PROTOCOL),
+                       ("sim", sim_protocol(fixed))):
+        _, metrics, viol = make_run(proto, SimConfig(**spec["cfg"]), fuzz)(
+            jr.PRNGKey(chip_smoke.SEED), groups, spec["steps"])
+        out[key] = {"violations": int(viol),
+                    **{k: int(v) for k, v in metrics.items()}}
+    a, b = out["sim_sw"], out["sim"]
+    out["equal"] = sorted(a) == sorted(b) and all(
+        a[k] == b[k] for k in a if k != "commit_lat_n")
+    out.update(device="cpu (the JAX package)",
+               seconds=time.perf_counter() - t0)
+    print(json.dumps(out))
+    return 0 if out["equal"] else 1
+
+
 def main() -> int:
+    if "--sw" in sys.argv:
+        i = sys.argv.index("--sw")
+        groups = (int(sys.argv[sys.argv.index("--groups") + 1])
+                  if "--groups" in sys.argv else 512)
+        return sw_pair(sys.argv[i + 1], groups)
     if "--soak" in sys.argv:
         i = sys.argv.index("--soak")
         return soak(sys.argv[i + 1], sys.argv[i + 2], int(sys.argv[i + 3]))
@@ -92,16 +148,11 @@ def main() -> int:
 
     import jax.random as jr
     from paxi_tpu.protocols import sim_protocol
-    from paxi_tpu.scenarios import NAMED, with_scenario
-    from paxi_tpu.sim import FuzzConfig, SimConfig, make_run
+    from paxi_tpu.sim import SimConfig, make_run
 
     spec = rows[args.row]
     sched = spec.get("schedule", "fault_free")
-    fuzz = {"fault_free": FuzzConfig(),
-            "wan3z": with_scenario(FuzzConfig(), NAMED["wan3z"]),
-            "bench_fuzz": FuzzConfig(**chip_smoke.BENCH_FUZZ_ARGS),
-            "hunt_drop": FuzzConfig(**chip_smoke.TWIN_DROP_ARGS),
-            "seqchurn_drop": FuzzConfig(**chip_smoke.TWIN_DROP_ARGS)}[sched]
+    fuzz = _fuzz(chip_smoke, sched)
     t0 = time.perf_counter()
     state, metrics, viol = make_run(sim_protocol(spec["protocol"]),
                                     SimConfig(**spec["cfg"]), fuzz)(

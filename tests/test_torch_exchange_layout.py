@@ -379,7 +379,7 @@ def test_whole_step_matches_pallas_and_dense(case):
     assert_tree_equal(jmb.wheel_insert(*args), got, "dense insert")
 
 
-# ---- a real step's outbox of each protocol ported in slices 8 and 9 --------
+# ---- a real step's outbox of each protocol ported in slices 8, 9 and 11 ----
 
 SLICE8 = {
     "wankeeper": dict(n_replicas=6, n_zones=2, n_objects=4, n_slots=16,
@@ -398,6 +398,14 @@ SLICE8 = {
     "switchpaxos": dict(n_replicas=5, n_slots=32, sw_down_start=2,
                         sw_down_period=6, sw_down_for=2),
     "switchpaxos_nogap": dict(n_replicas=5, n_slots=32),
+    # slice 11: the frozen sliding-window twins (``profiling.SW_TWINS``)
+    # at the fixed-cell equivalence shapes; their shifted planes reach the
+    # outbox through the same sends as the fixed-cell kernels'
+    "paxos_sw": dict(n_replicas=3, n_slots=16),
+    "sdpaxos_sw": dict(n_replicas=3, n_slots=16),
+    "wankeeper_sw": dict(n_replicas=6, n_zones=3, n_slots=16),
+    "wpaxos_sw": dict(n_replicas=6, n_zones=3, n_slots=8, n_objects=4),
+    "bpaxos_sw": dict(n_replicas=7, n_slots=16),
 }
 
 
@@ -410,9 +418,10 @@ def test_real_outbox_goes_through_the_tables(name, g):
     raises on a group stride other than 1), and the model of the kernels
     over the plans equals ``mailbox.wheel_deliver``/``wheel_insert``."""
     from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.profiling import resolve_kernel
     from paxi_tpu_torch.sim import FuzzConfig, runner
     from paxi_tpu_torch.sim.types import StepCtx
-    proto, cfg = sim_protocol(name), SimConfig(**SLICE8[name])
+    proto, cfg = resolve_kernel(name), SimConfig(**SLICE8[name])
     fuzz = FuzzConfig(p_drop=0.2, max_delay=2)
     body = runner.make_scan_body(proto, cfg, fuzz)
     with torch.inference_mode():

@@ -46,7 +46,11 @@ def test_files_found():
                    "profiling.py", "fuzz_soak.py", "bench_all.py",
                    "trace/host.py", "hunt/__init__.py", "hunt/cases.py",
                    "hunt/corpus.py", "hunt/classify.py", "hunt/report.py",
-                   "hunt/engine.py"):
+                   "hunt/engine.py", "bench.py", "workload/demo.py",
+                   "protocols/paxos/sim_sw.py", "protocols/sdpaxos/sim_sw.py",
+                   "protocols/wankeeper/sim_sw.py",
+                   "protocols/bpaxos/sim_sw.py",
+                   "protocols/wpaxos/sim_sw.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
