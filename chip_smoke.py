@@ -139,7 +139,17 @@ non-zero exit code and no result line:
    (``SW_ROWS``); every twin card against CPU at 64 x 20 under DROP; and
    ``python -m paxi_tpu_torch.workload.demo`` on the card, its four
    stage lines equal to the CPU's;
-12. the kernel summary line, the ``nvidia-smi`` line, and last the result
+12. the host-sync audit (slice 12): every kernel of the sim registry and
+   every sliding-window twin at 1,024 groups, under the schedule its row
+   runs (paxos and epaxos also fault-free, wpaxos under GEO3Z): 2 warm-up
+   steps, then 4 steps of ``run_steps`` under
+   ``torch.cuda.set_sync_debug_mode("warn")``, one line a run with its
+   syncs a step and their ``file:line`` sites (each warning's innermost
+   frame in the package); every site must be a line the port's lint
+   (``python -m paxi_tpu_torch lint``) reports under PXK104 or PXK107,
+   kept or baselined, and the flagged lines that never fired are printed
+   as static-only; the phase must take under 30 s;
+13. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -470,6 +480,41 @@ for _row in SW_ROWS.values():
 SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 20
 SW_SMALL_CFGS = {"paxos_sw": PATHS["paxos"]["cfg"],
                  **{k: r["cfg"] for k, r in SW_ROWS.items()}}
+
+
+# phase 12: the host-sync audit.  Every registered kernel and every
+# sliding-window twin at AUDIT_GROUPS groups: AUDIT_WARMUP steps, then
+# AUDIT_STEPS of ``run_steps`` under the CUDA sync debug mode; each under
+# the schedule its row runs (paxos and epaxos also fault-free), wpaxos
+# under GEO3Z so the scenario planes run
+AUDIT_GROUPS, AUDIT_WARMUP, AUDIT_STEPS = 1024, 2, 4
+AUDIT_SECONDS = 30
+AUDIT_RUNS = (
+    ("paxos", PATHS["paxos"]["cfg"], "fault_free"),
+    ("paxos", PATHS["paxos"]["cfg"], "fuzz"),
+    ("paxos_pg", PATHS["paxos"]["cfg"], "fault_free"),
+    ("epaxos", PATHS["epaxos"]["cfg"], "fault_free"),
+    ("epaxos", PATHS["epaxos"]["cfg"], "fuzz"),
+    ("sdpaxos", NEW_PATHS["sdpaxos"]["cfg"], "fault_free"),
+    ("wpaxos", NEW_PATHS["wpaxos"]["cfg"], "geo3z"),
+    ("wpaxos_thinq1", WITNESS_CFG, "geo3z"),
+    ("wankeeper", PROTO_ROWS["wankeeper_zones"]["cfg"], "fault_free"),
+    ("wankeeper_nofloor", TWIN_CFGS["wankeeper_nofloor"], "hunt_drop"),
+    ("bpaxos", PROTO_ROWS["bpaxos_grid"]["cfg"], "fault_free"),
+    ("bpaxos_noread", TWIN_CFGS["bpaxos_noread"], "hunt_drop"),
+    ("chain", PROTO_ROWS["chain_pipeline"]["cfg"], "fault_free"),
+    ("kpaxos", PROTO_ROWS["kpaxos_path"]["cfg"], "fault_free"),
+    ("abd", PROTO_ROWS["abd_register"]["cfg"], "fault_free"),
+    ("dynamo", PROTO_ROWS["dynamo_path"]["cfg"], "fault_free"),
+    ("blockchain", PROTO_ROWS["blockchain_forks"]["cfg"], "bench_fuzz"),
+    ("switchpaxos", SWITCH_CFG, "wan3z"),
+    ("switchpaxos_nogap", HUNT_SWITCH_CFG, "hunt_drop"),
+    ("fragile_counter", DEMO_CASES["fragile_counter"][0],
+     DEMO_CASES["fragile_counter"][1][0]),
+    ("relay_churn", DEMO_CASES["relay_churn"][0],
+     DEMO_CASES["relay_churn"][1][0]),
+    *((k, c, "fault_free") for k, c in SW_SMALL_CFGS.items()),
+)
 
 
 def log(msg: str) -> None:
@@ -2188,6 +2233,135 @@ def workload_demo_phase():
         fail(f"workload demo: card {card} != CPU {cpu}")
 
 
+
+# ---- phase 12: the host-sync audit ---------------------------------------
+
+def audit_fuzz(name: str):
+    from paxi_tpu_torch.sim import FuzzConfig
+    if name == "fuzz":
+        return FuzzConfig(**FUZZ_ARGS)
+    if name == "geo3z":
+        return geo_fuzz()
+    return schedule_of(name)
+
+
+def repo_site(stack) -> str:
+    """The innermost frame of ``stack`` inside the port's package, as a
+    repo-relative ``path:line``; else the innermost frame outside the
+    ``warnings`` module, the whole chain of frames spelled out."""
+    pkg = str(ROOT / "paxi_tpu_torch") + os.sep
+    for frame in reversed(stack):
+        if frame.filename.startswith(pkg):
+            return f"{Path(frame.filename).relative_to(ROOT)}:{frame.lineno}"
+    import warnings
+    own = warnings.__file__
+    return " < ".join(f"{f.filename}:{f.lineno}" for f in reversed(stack)
+                      if f.filename != own)
+
+
+def audit_run(name: str, cfg_kw, sched: str):
+    """``(syncs a step, {site: count}, launches)`` of one kernel's audited
+    steps: AUDIT_WARMUP steps, then AUDIT_STEPS of ``run_steps`` with the
+    CUDA sync debug mode at "warn", every warning's innermost repo frame
+    recorded (``warnings.showwarning`` sees the whole stack) and the
+    kernel launches of those steps counted."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.profiling import resolve_kernel
+    from paxi_tpu_torch.sim import SimConfig, runner
+    proto, cfg, fuzz = resolve_kernel(name), SimConfig(**cfg_kw), \
+        audit_fuzz(sched)
+    body = runner.make_scan_body(proto, cfg, fuzz)
+    sites = Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            sites[repo_site(traceback.extract_stack()[:-1])] += 1
+
+    with torch.inference_mode():
+        carry = runner.init_carry(proto, cfg, fuzz, AUDIT_GROUPS,
+                                  tr.PRNGKey(SEED), DEVICE)
+        carry = runner.run_steps(body, carry, AUDIT_WARMUP)[0]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = runner.run_steps(body, carry, AUDIT_STEPS,
+                                       t0=AUDIT_WARMUP)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    del out, carry
+    return sum(sites.values()) / AUDIT_STEPS, dict(sites), launches
+
+
+def sync_audit_phase(smi: str):
+    """Phase 12: every runtime host-sync site of the audited steps must be
+    a line the port's lint reports under PXK104 or PXK107 (kept or
+    baselined); a flagged line that never fires is printed as
+    static-only.  Returns ``({run label: syncs a step}, the kernel
+    launches of the audited steps)``."""
+    import warnings
+
+    from paxi_tpu_torch import analysis
+    from paxi_tpu_torch.analysis import purity
+    t0 = time.perf_counter()
+    # the first switch into the debug mode reports a sync of its own (the
+    # harness's, torch/cuda/__init__.py): take it here, outside the runs
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    report = analysis.run_lint(rules=["kernel-purity"])
+    flagged = purity.flagged_spans(
+        ROOT, report.violations + [v for v, _ in report.suppressed])
+    lint_s = time.perf_counter() - t0
+    per_step, fired, missed = {}, set(), []
+    launches = dict.fromkeys(launch_counts(), 0)
+    for name, cfg_kw, sched in AUDIT_RUNS:
+        t_run = time.perf_counter()
+        rate, sites, ran = audit_run(name, cfg_kw, sched)
+        t_run = time.perf_counter() - t_run
+        launches = {k: v + ran[k] for k, v in launches.items()}
+        label = f"{name}/{sched}"
+        per_step[label] = rate
+        for site, n in sites.items():
+            path, _, line = site.rpartition(":")
+            span = next((sp for sp in flagged.get(path, ())
+                         if sp[0] <= int(line) <= sp[1]), None)
+            if span is None:
+                missed.append(site)
+            else:
+                fired.add((path, span))
+        log("sync_audit " + json.dumps({
+            "kernel": name, "fuzz": sched, "groups": AUDIT_GROUPS,
+            "steps": AUDIT_STEPS, "syncs_a_step": rate,
+            "sites": {k: v / AUDIT_STEPS for k, v in sorted(sites.items())},
+            "launches": ran, "wall_s": t_run, "nvidia_smi": smi}))
+        torch.cuda.empty_cache()
+    static_only = sorted(f"{path}:{a}" for path, spans in flagged.items()
+                         for a, b in spans if (path, (a, b)) not in fired)
+    seconds = time.perf_counter() - t0
+    log("sync_audit_summary " + json.dumps({
+        "runs": len(AUDIT_RUNS), "lint_s": lint_s, "seconds": seconds,
+        "launches": launches,
+        "runtime_sites_missed_by_lint": sorted(set(missed)),
+        "static_only": static_only, "nvidia_smi": smi}))
+    if missed:
+        fail(f"sync audit: runtime sync sites the lint does not report "
+             f"under PXK104/PXK107: {sorted(set(missed))}")
+    if seconds > AUDIT_SECONDS:
+        fail(f"sync audit took {seconds:.1f} s, over {AUDIT_SECONDS} s")
+    return per_step, launches
+
+
 # ---- phase 6: four ranks on the one card ---------------------------------
 
 def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
@@ -2605,13 +2779,19 @@ def main() -> int:
     sw_small_phase()
     workload_demo_phase()
     t11 = time.perf_counter() - t11
+
+    # 12. the host-sync audit: every kernel's steps under the CUDA sync
+    # debug mode, each runtime site held to the lint's PXK104/PXK107
+    t12 = time.perf_counter()
+    _, audit_launches = sync_audit_phase(smi)
+    t12 = time.perf_counter() - t12
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
-        "slice11_bench_and_sw_twins": t11,
+        "slice11_bench_and_sw_twins": t11, "sync_audit": t12,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 12. the kernel summary: launches from the epaxos main path (the one
+    # 13. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]
@@ -2632,7 +2812,8 @@ def main() -> int:
                    **{p: n[k] for p, n in driver_launches.items()},
                    "bench_twin_timed_run": bench_launches[k],
                    "layout_ab_paxos_sw": sw_ab_launches[k],
-                   **{row: r["kernels"][k] for row, r in sw_rows.items()}}
+                   **{row: r["kernels"][k] for row, r in sw_rows.items()},
+                   "sync_audit": audit_launches[k]}
                for k in launches}
     kernels = []
     for kname, replaces in (("wheel_deliver", "paxi_tpu/ops/exchange.py:93"),

@@ -6,12 +6,14 @@ and exit codes).
         -replicas 5 -slots 64 -steps 104
     python -m paxi_tpu_torch profile | trace info|replay|shrink FILE |
         hunt run|status|report --no-host | scenario list|run |
-        workload list|run | metrics --series
+        workload list|run | metrics --series | lint [PATHS]
 
-Every subcommand takes ``-device``/``--device``: the card by default,
-``cpu`` to run on the CPU.  The host runtime stays in the JAX package
-(``server``, ``client``, ``trace host``, ``scenario run -host``, the hunt's
-host replay, the metrics scrape), as do ``lint`` and ``spans``.
+Every subcommand that runs the sim takes ``-device``/``--device``: the
+card by default, ``cpu`` to run on the CPU.  ``lint`` is the port's
+paxi-lint (``paxi_tpu_torch/analysis``): pure AST, it needs no card.
+The host runtime stays in the JAX package (``server``, ``client``,
+``trace host``, ``scenario run -host``, the hunt's host replay, the
+metrics scrape), as does ``spans``.
 """
 
 from __future__ import annotations
@@ -336,6 +338,93 @@ def cmd_metrics(args) -> int:
     return 0
 
 
+def _git_changed_py(root) -> list:
+    """Files for ``lint --changed``: tracked modifications vs HEAD plus
+    untracked files, filtered to ``paxi_tpu_torch/*.py`` (the analyzer's
+    universe).  Deleted files vanish from the diff listing only once
+    unlinked, so drop anything that no longer exists."""
+    import subprocess
+    from pathlib import Path
+
+    names: list = []
+    for cmd in (["git", "diff", "--name-only", "HEAD", "--"],
+                ["git", "ls-files", "--others", "--exclude-standard"]):
+        try:
+            out = subprocess.run(cmd, cwd=root, capture_output=True,
+                                 text=True, check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            raise ValueError(f"--changed needs a git checkout: {e}")
+        names.extend(out.splitlines())
+    seen = set()
+    changed = []
+    for n in names:
+        if (n.endswith(".py") and n.startswith("paxi_tpu_torch/")
+                and n not in seen and (root / n).is_file()):
+            seen.add(n)
+            changed.append(Path(root / n))
+    return changed
+
+
+def cmd_lint(args) -> int:
+    """paxi-lint over the port (``paxi_tpu_torch/analysis``).
+
+    Exits 0 when the tree is clean modulo the checked-in baseline
+    (``analysis/baseline.toml``), 1 on violations, 2 on a usage error —
+    the JAX package's ``lint`` contract, with its JSON field names."""
+    from pathlib import Path
+
+    from paxi_tpu_torch import analysis
+
+    if args.graph:
+        # the cross-module call graph the PXF and PXK rules walk, as DOT
+        from paxi_tpu_torch.analysis.project import shared_index
+        print(shared_index(analysis.repo_root()).to_dot())
+        return 0
+
+    paths = [Path(p) for p in args.paths]
+    strict_targets = False
+    if args.changed:
+        if paths:
+            print("lint: --changed and explicit paths are exclusive",
+                  file=sys.stderr)
+            return 2
+        changed = _git_changed_py(analysis.repo_root())
+        if not changed:
+            print("lint: no changed paxi_tpu_torch/*.py files — nothing "
+                  "to do")
+            return 0
+        paths = changed
+        # a changed file outside a family's TARGETS globs must stay
+        # outside it (same verdicts as a full run, just scoped)
+        strict_targets = True
+    baseline = None if args.no_baseline else (
+        Path(args.baseline) if args.baseline else analysis.DEFAULT_BASELINE)
+    try:
+        report = analysis.run_lint(
+            rules=args.rule or None,
+            baseline_path=baseline,
+            paths=paths or None,
+            strict_targets=strict_targets)
+    except (KeyError, ValueError) as e:
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    if args.sarif:
+        text = report.to_sarif()
+        if args.sarif == "-":
+            print(text)
+        else:
+            Path(args.sarif).write_text(text + "\n")
+    if args.json:
+        print(report.to_json())
+    else:
+        print(report.render(verbose=args.verbose))
+    if args.strict_unused and report.unused_baseline:
+        print("lint: stale baseline entries (see warnings above) — "
+              "baselines may only shrink; delete them", file=sys.stderr)
+        return 1
+    return 0 if report.ok else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="paxi_tpu_torch",
@@ -503,6 +592,41 @@ def build_parser() -> argparse.ArgumentParser:
     me.add_argument("-max_delay", type=int, default=1)
     _device_arg(me)
     me.set_defaults(fn=cmd_metrics)
+
+    li = sub.add_parser(
+        "lint", help="protocol-aware static analysis of the port's kernels "
+                     "(paxi-lint; no card needed)")
+    li.add_argument("paths", nargs="*", default=[],
+                    help="restrict to these files/directories "
+                         "(default: the whole port)")
+    li.add_argument("-rule", "--rule", action="append", default=[],
+                    help="run only these rule families: names "
+                         "(`kernel-purity`) or code prefixes "
+                         "(`PXK,PXF`); repeatable")
+    li.add_argument("-json", "--json", action="store_true",
+                    help="machine-readable report")
+    li.add_argument("-verbose", "--verbose", action="store_true",
+                    help="also list suppressed findings")
+    li.add_argument("-baseline", "--baseline", default="",
+                    help="alternate baseline file")
+    li.add_argument("-no_baseline", "--no-baseline", dest="no_baseline",
+                    action="store_true",
+                    help="ignore the baseline (show every finding)")
+    li.add_argument("-strict_unused", "--strict-unused",
+                    dest="strict_unused", action="store_true",
+                    help="exit 1 on stale (unused) baseline entries")
+    li.add_argument("-sarif", "--sarif", default="",
+                    help="also write the report as SARIF 2.1.0 to this "
+                         "path (`-` for stdout)")
+    li.add_argument("-changed", "--changed", action="store_true",
+                    help="lint only paxi_tpu_torch/*.py files changed vs "
+                         "git HEAD (plus untracked); families keep their "
+                         "TARGETS scoping so verdicts agree with a full "
+                         "run")
+    li.add_argument("-graph", "--graph", action="store_true",
+                    help="dump the ProjectIndex cross-module call graph "
+                         "as GraphViz DOT instead of linting")
+    li.set_defaults(fn=cmd_lint)
     return p
 
 

@@ -50,7 +50,8 @@ def test_files_found():
                    "protocols/paxos/sim_sw.py", "protocols/sdpaxos/sim_sw.py",
                    "protocols/wankeeper/sim_sw.py",
                    "protocols/bpaxos/sim_sw.py",
-                   "protocols/wpaxos/sim_sw.py"):
+                   "protocols/wpaxos/sim_sw.py", "analysis/purity.py",
+                   "analysis/crossflow.py", "analysis/project.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
