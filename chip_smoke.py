@@ -115,12 +115,20 @@ non-zero exit code and no result line:
    committed, 0 violations, 104 launches of each exchange half) and one
    short ``python -m paxi_tpu_torch sim`` subprocess; a hunt
    micro-campaign through ``cli.main`` (``hunt run --protocols
-   switchpaxos,switchpaxos_nogap --budget 1 --quick --shrink-trials 4
-   --no-host``, its corpus seeded with phase 9's 100k seqchurn witness):
-   the nogap witness captured, shrunk and replayed to its hash, nothing
-   unclassified, the 100k witness classified through the backlog with
-   its coverage logged, each run's violations and progress equal to the
-   CPU's; the ``bench_all`` twin's ``paxos_3rep`` row at its card shape
+   switchpaxos,switchpaxos_nogap --budget 1 --quick --shrink-trials 4``,
+   host replay on, its corpus seeded with phase 9's 100k seqchurn
+   witness): the nogap witness captured, shrunk and replayed to its hash,
+   every witness classified by the host replay on the virtual-clock
+   fabric (asyncio on the CPU; none unclassified), the 100k witness
+   through the backlog with its coverage logged, each run's violations
+   and progress equal to the CPU's; one line a witness (verdict, host
+   outcome with its span count, the host replay's wall s), its host
+   outcome read twice more from its file, equal to each other (spans
+   included) and to the campaign's; the nogap run captured again on the
+   CPU, its hash and host outcome equal to the card capture's; ``trace
+   host --all`` over the 100k witness; ``scenario run -host`` (paxos
+   under wan3z) equal to the JAX package's line on the CPU; the
+   ``bench_all`` twin's ``paxos_3rep`` row at its card shape
    (16,384 groups x 104 steps: 1,638,400 committed); and the
    ``fuzz_soak`` twin's record of paxos x DROP x seed 0 (64 x 150) equal
    to the CPU's;
@@ -444,9 +452,24 @@ CLI_SUBPROCESS_ARGV = ["sim", "-algorithm", "paxos", "-groups", "1024",
 # DROP) violates, so a budget of 1 finds a witness; phase 9 saves its
 # 100k seqchurn witness into WITNESS_DIR, the campaign's corpus seed
 HUNT_ARGV = ["--protocols", "switchpaxos,switchpaxos_nogap", "--budget", "1",
-             "--quick", "--shrink-trials", "4", "--no-host"]
+             "--quick", "--shrink-trials", "4"]
 WITNESS_DIR = SCRATCH_DIR + "/traces"
 HUNT_DIR = SCRATCH_DIR + "/hunt"
+# the host runtime under a scenario (``scenario run -host``), held to the
+# line ``python -m paxi_tpu scenario run -host`` prints for the same
+# arguments on the CPU, exit code 1 included (both host runtimes count
+# one linearizability anomaly in this run; ROADMAP Queue 3)
+SCENARIO_HOST_ARGV = ["scenario", "run", "-host", "-scenario", "wan3z",
+                      "-algorithm", "paxos", "-replicas", "3", "-zones", "3",
+                      "-steps", "40"]
+SCENARIO_HOST_WANT = (1, {
+    "anomalies": 1, "oracle_violations": 0, "ops_ok": 25, "ops_failed": 0,
+    "steps": 40, "fabric_stats": {
+        "submitted": 153, "delivered": 153, "dropped_fault": 0,
+        "delayed_fault": 0, "dropped_crash": 0, "dropped_cut": 0,
+        "dropped_no_listener": 0, "edge_delayed": 115},
+    "span_count": 133, "runtime": "host", "algorithm": "paxos",
+    "scenario": "wan3z"})
 # bench_all's paxos_3rep at its own card shape (16,384 groups x 104 steps):
 # fault-free paxos commits steps - 4 slots a group (the JAX package's
 # count on the CPU: ``scripts/reference_counts.py bench_paxos_3rep``)
@@ -1938,12 +1961,25 @@ def cli_phase(smi: str):
     return launches
 
 
+def host_replay(trace):
+    """One host replay of ``trace`` on the virtual-clock fabric (asyncio
+    on the CPU): its ``HostOutcome`` and wall s."""
+    import asyncio
+    from paxi_tpu_torch.hunt import replay_witness
+    t0 = time.perf_counter()
+    out = asyncio.run(replay_witness(trace))
+    return out, time.perf_counter() - t0
+
+
 def hunt_campaign_phase(witness_hash: str, smi: str):
-    """``hunt run`` on the card: the nogap witness captured, shrunk and
-    replayed to its hash, nothing unclassified, phase 9's 100k seqchurn
-    witness classified through the backlog (its coverage on a line of its
-    own), and each run's violations and progress equal to the same
-    (case, seed) run on the CPU."""
+    """``hunt run`` on the card with host replay on: the nogap witness
+    captured, shrunk and replayed to its hash, every witness classified
+    (``reproduced``/``diverged``/``unmappable``, none unclassified), phase
+    9's 100k seqchurn witness classified through the backlog, each run's
+    violations and progress equal to the same (case, seed) run on the CPU;
+    then each witness's host outcome read twice more from its file (equal
+    to each other and to the campaign's, spans included), and the nogap
+    capture's host outcome equal to the same run captured on the CPU."""
     import shutil
     from paxi_tpu_torch import cli
     from paxi_tpu_torch import random as tr
@@ -1974,11 +2010,16 @@ def hunt_campaign_phase(witness_hash: str, smi: str):
 
     cases = hunt_cases.hunt_cases(["switchpaxos", "switchpaxos_nogap"],
                                   quick=True)
-    for run in state["runs"]:
+
+    def case_of(run):
         name, cfg, scheds, groups, steps, pkey = \
             cases[run["protocol"]][int(run["run"].split(":")[0])]
         fz = next(f for f in scheds
                   if hunt_cases.sched_name(f) == run["schedule"])
+        return name, cfg, fz, groups, steps, pkey
+
+    for run in state["runs"]:
+        name, cfg, fz, groups, steps, pkey = case_of(run)
         _, metrics, viols = make_run(sim_protocol(name), cfg, fz,
                                      device="cpu")(
             tr.PRNGKey(run["seed"]), groups, steps)
@@ -2019,6 +2060,75 @@ def hunt_campaign_phase(witness_hash: str, smi: str):
         "events_after": w["events_after"],
         "outcome": w["classification"]["outcome"],
         "replay_state_hash": r.state_hash, "replay_equal": True}))
+
+    # every witness's verdict, and its host outcome read twice from its
+    # file: equal to each other (spans included) and to the campaign's
+    for h, wit in sorted(state["witnesses"].items()):
+        cl = wit["classification"]
+        line = {"witness": h, "protocol": wit["protocol"],
+                "outcome": cl["outcome"], "reason": cl["reason"],
+                "host": cl.get("host"), "host_replay_wall_s": None}
+        if cl["outcome"] not in ("reproduced", "diverged", "unmappable"):
+            fail(f"hunt run: witness {h[:16]} unclassified: {cl}")
+        if cl.get("host") is not None:
+            trace = corpus.load(wit.get("minimal") or h)
+            (a, sa), (b, sb) = host_replay(trace), host_replay(trace)
+            if a.to_json() != b.to_json() or a.spans != b.spans:
+                fail(f"hunt witness {h[:16]}: two host replays differ: "
+                     f"{a.to_json()} / {b.to_json()}")
+            if a.to_json() != cl["host"]:
+                fail(f"hunt witness {h[:16]}: host replay {a.to_json()} "
+                     f"!= the campaign's {cl['host']}")
+            line.update(host_replay_wall_s=[sa, sb], replays_equal=True)
+        log("hunt_witness_host " + json.dumps(line))
+
+    # the nogap run captured again on the CPU: the same schedule, the
+    # same host outcome and span timeline as the card's capture
+    run = next(r for r in state["runs"] if r.get("witness") == w["capture"])
+    name, cfg, fz, groups, steps, _ = case_of(run)
+    t0 = time.perf_counter()
+    cpu_t = T.capture(sim_protocol(name), cfg, fz, run["seed"], groups,
+                      steps, proto_name=name, device="cpu")
+    cpu_capture_s = time.perf_counter() - t0
+    card_out, card_s = host_replay(corpus.load(w["capture"]))
+    cpu_out, cpu_s = host_replay(cpu_t)
+    same = (cpu_t.meta["schedule_hash"] == w["capture"]
+            and cpu_out.to_json() == card_out.to_json()
+            and cpu_out.spans == card_out.spans)
+    log("hunt_nogap_cpu_capture " + json.dumps({
+        "card_capture": w["capture"],
+        "cpu_capture": cpu_t.meta["schedule_hash"],
+        "cpu_capture_wall_s": cpu_capture_s, "host": card_out.to_json(),
+        "host_replay_wall_s": {"card_capture": card_s,
+                               "cpu_capture": cpu_s},
+        "equal": same}))
+    if not same:
+        fail(f"hunt nogap: the CPU capture's host outcome "
+             f"{cpu_out.to_json()} != the card's {card_out.to_json()}")
+
+    # trace host --all over the 100k seqchurn witness
+    path = str(corpus.path_of(witness_hash))
+    rc, out = captured(cli.main, ["trace", "host", path, "--all"])
+    cov = json.loads(out)["coverage"]
+    log("trace_host_all " + json.dumps({
+        "witness": witness_hash, "rc": rc,
+        "trace_protocol": json.loads(out)["trace_protocol"],
+        "coverage": {k: cov[k] for k in ("switchpaxos",
+                                         "switchpaxos_nogap", "paxos")}}))
+    if rc != 0 or cov["switchpaxos"] != c["coverage"]:
+        fail(f"trace host --all: rc {rc}, {cov.get('switchpaxos')} != the "
+             f"hunt's coverage {c['coverage']}")
+
+    # scenario run -host: paxos under wan3z on the host fabric
+    t0 = time.perf_counter()
+    rc, out = captured(cli.main, SCENARIO_HOST_ARGV)
+    got = (rc, json.loads(out))
+    log("scenario_host " + json.dumps({
+        "argv": SCENARIO_HOST_ARGV, "rc": rc, "line": got[1],
+        "wall_s": time.perf_counter() - t0,
+        "equal_to_reference": got == SCENARIO_HOST_WANT}))
+    if got != SCENARIO_HOST_WANT:
+        fail(f"scenario run -host: {got} != {SCENARIO_HOST_WANT}")
     return launches
 
 

@@ -8,8 +8,10 @@ Rule families:
   PyTorch: host syncs in per-step code (PXK104), device tensors built
   from host data every step (PXK107), and the JAX package's determinism
   codes (PXK101-103, 105, 106);
-- ``trace-map``             (tracemap.py,  PXT30x) — the sim half:
-  registry x ``mailbox_spec`` x ``trace/host.py``'s ``TRACE_MSG_MAPS``;
+- ``trace-map``             (tracemap.py,  PXT30x) — registry x
+  ``mailbox_spec`` x each ported host twin's ``TRACE_MSG_MAP`` (and
+  its message classes, PXT304), else ``trace/host.py``'s
+  ``TRACE_MSG_MAPS`` copy;
 - ``quorum-safety``         (quorum.py,    PXQ50x) — the sim half
   (PXQ502-505) over ``SimConfig``'s derived sizes and the zone and
   row/column grids;
@@ -36,12 +38,13 @@ Left out, with the reason:
   (replay determinism), PXE (epoch fence), PXR (lease flow) and PXV (wire
   records) read ``host/``, ``shard/``, ``obs/``, ``switchnet/switch.py``
   and the wire records — the asyncio host runtime and the serving
-  stack, which stay in the JAX package; the port has none of that code
-  to lint.
+  stack.  The port has the replay half of that runtime so far (four
+  host twins, no serving, no ``shard/``); the host families are queued
+  behind the remaining twins and the serving stack.
 - PXS (sim/host state parity) pairs each kernel with its host module;
   the port's state is held to the JAX package's by the parity tests
   (``tests/test_torch_*.py``) instead.
-- PXT304 and the host-form quorum checks (PXQ501, the host grid and
+- The host-form quorum checks (PXQ501, the host grid and
   switch-handler forms) read host modules, likewise.
 
 Entry points: ``python -m paxi_tpu_torch lint [--rule ...] [--json]``

@@ -2,7 +2,9 @@
 
 The hunt projects a sim trace's per-mailbox fault schedule onto the host
 runtime's message classes through the protocol's trace map (sim mailbox
-name -> host message class).  The port keeps those maps as data:
+name -> host message class).  A ported host twin (the registry's
+``_HOST_MODULES``) holds its own ``TRACE_MSG_MAP``, as in the JAX
+package; the maps of the twins still to be ported are data in
 ``trace/host.py``'s ``TRACE_MSG_MAPS`` literal, keyed by host-registry
 name.  Every *unmapped* mailbox degrades to a coarse time-window drop in
 the projection; a *missing* map disables the projection entirely.
@@ -17,7 +19,9 @@ This rule closes the loop statically, without importing anything:
 - the sim module's ``mailbox_spec`` supplies the mailbox names (dict
   literal keys — constant strings even where the field tuples are
   computed);
-- ``TRACE_MSG_MAPS`` supplies each map.
+- each ported twin's ``TRACE_MSG_MAP`` (a twin with a ``TWIN_OF =
+  "pkg.base_host"`` marker is read as its base), else the
+  ``TRACE_MSG_MAPS`` literal, supplies each map.
 
 Checks:
 
@@ -29,10 +33,10 @@ Checks:
 - **PXT303** a map key that names no sim mailbox (stale after a kernel
   refactor — it will never match a recorded fault)
 
-Not ported: **PXT304** (a map value naming no ``@register_message``
-class of the host module).  It reads the host runtime's message classes,
-which stay in the JAX package; the port's maps are copies the hunt tests
-hold equal to the JAX package's.
+- **PXT304** a ported twin's map value naming no ``@register_message``
+  class of the twin's module (the fabric matches type names, so a typo
+  never fires).  The literal's maps are copies of twins not yet ported,
+  which the hunt tests hold equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,8 +55,12 @@ MAPS = "paxi_tpu_torch/trace/host.py"
 MAPS_NAME = "TRACE_MSG_MAPS"
 
 TARGETS = (REGISTRY, MAPS, "paxi_tpu_torch/protocols/*/sim*.py",
+           "paxi_tpu_torch/protocols/*/host.py",
+           "paxi_tpu_torch/protocols/*/nogap.py",
            "paxi_tpu_torch/trace/demo.py",
+           "paxi_tpu_torch/trace/demo_host.py",
            "paxi_tpu_torch/scenarios/demo.py")
+TWIN_MAP_NAME = "TRACE_MSG_MAP"
 
 
 def _module_to_path(module: str, root: Path) -> Path:
@@ -71,18 +79,78 @@ def registry(root: Path) -> List[Tuple[str, str, int]]:
             if v is not None]
 
 
-def trace_maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int]]:
-    """protocol -> (its map, the line of its entry in TRACE_MSG_MAPS)."""
+def _twin_of(root: Path, module: str) -> Optional[str]:
+    """A host twin module's ``TWIN_OF = "pkg.base_host"`` marker: the
+    twin subclasses its base replica to seed a bug and declares that its
+    message classes and maps live in the base."""
+    path = _module_to_path(module, root)
+    if not path.exists():
+        return None
+    tree, _ = astutil.parse_file(path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and node.targets[0].id == "TWIN_OF" \
+                and isinstance(node.value, ast.Constant) \
+                and isinstance(node.value.value, str):
+            return node.value.value
+    return None
+
+
+def twin_modules(root: Path) -> Dict[str, Path]:
+    """protocol -> the file holding its ported host twin's map (its
+    ``TWIN_OF`` base where it has one); {} without ``_HOST_MODULES``."""
+    tree, _ = astutil.parse_file(root / REGISTRY)
+    hosts = astutil.parse_module_dict(tree, "_HOST_MODULES")
+    if hosts is None:
+        return {}
+    out = {}
+    for k, v, _, _ in astutil.str_dict_items(hosts):
+        if v is not None:
+            out[k] = _module_to_path(_twin_of(root, v) or v, root)
+    return out
+
+
+def _maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int, Path]]:
+    """protocol -> (its map, the line of its map, the file holding it)."""
     tree, _ = astutil.parse_file(root / MAPS)
     d = astutil.parse_module_dict(tree, MAPS_NAME)
     if d is None:
         raise ValueError(f"{MAPS}: {MAPS_NAME} dict literal not found")
-    out: Dict[str, Tuple[Dict[str, str], int]] = {}
+    out: Dict[str, Tuple[Dict[str, str], int, Path]] = {}
     for k, v in zip(d.keys, d.values):
         if isinstance(k, ast.Constant) and isinstance(k.value, str) \
                 and isinstance(v, ast.Dict):
             out[k.value] = ({key: val or "" for key, val, _, _
-                             in astutil.str_dict_items(v)}, k.lineno)
+                             in astutil.str_dict_items(v)}, k.lineno,
+                            root / MAPS)
+    for protocol, path in twin_modules(root).items():
+        if not path.exists():
+            continue
+        tm = astutil.parse_module_dict(astutil.parse_file(path)[0],
+                                       TWIN_MAP_NAME)
+        if tm is not None:
+            out[protocol] = ({key: val or "" for key, val, _, _
+                              in astutil.str_dict_items(tm)}, tm.lineno,
+                             path)
+    return out
+
+
+def trace_maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int]]:
+    """protocol -> (its map, the line of the map in the file holding
+    it: the ported twin's module, else ``TRACE_MSG_MAPS``)."""
+    return {k: (m, line) for k, (m, line, _) in _maps(root).items()}
+
+
+def host_message_classes(path: Path) -> set:
+    """The ``@register_message`` classes a host module defines."""
+    tree, _ = astutil.parse_file(path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef):
+            decs = astutil.decorator_names(node)
+            if any(d.split(".")[-1] == "register_message" for d in decs):
+                out.add(node.name)
     return out
 
 
@@ -121,7 +189,8 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
         return rp in files or any(str(rp).startswith(str(d) + "/")
                                   for d in dirs)
 
-    shared = inside(root / REGISTRY) or inside(root / MAPS)
+    shared = (inside(root / REGISTRY) or inside(root / MAPS)
+              or any(inside(p) for p in twin_modules(root).values()))
     out = []
     for protocol, sim_mod, line in registry(root):
         sim_path = _module_to_path(sim_mod, root)
@@ -137,7 +206,8 @@ def check(root: Path,
           files: Optional[Sequence[Path]] = None) -> List[Violation]:
     """``files``, when given, restricts the check to protocols whose sim
     module (or the registry, or the maps file) is in the set."""
-    maps = trace_maps(root)
+    sources = _maps(root)
+    maps = {k: (m, line) for k, (m, line, _) in sources.items()}
     out: List[Violation] = []
     seen = set()
     for protocol, sim_mod, sim_path, reg_line in analyzed(root, files):
@@ -159,12 +229,14 @@ def check(root: Path,
         if key in seen:
             continue            # a variant on its base's kernel and map
         seen.add(key)
-        mapping, line = maps[base]
+        mapping, line, map_file = sources[base]
+        map_path = astutil.rel(map_file, root)
         box_names = {name for name, _ in boxes}
         for name, _ in boxes:
             if name not in mapping:
                 out.append(Violation(
-                    rule=RULE, code="PXT302", path=MAPS, line=line, col=0,
+                    rule=RULE, code="PXT302", path=map_path, line=line,
+                    col=0,
                     message=f"sim mailbox `{name}` of protocol "
                             f"`{protocol}` is not covered by "
                             f"{MAPS_NAME}[{base!r}] — its recorded "
@@ -172,8 +244,21 @@ def check(root: Path,
         for k in mapping:
             if k not in box_names:
                 out.append(Violation(
-                    rule=RULE, code="PXT303", path=MAPS, line=line, col=0,
+                    rule=RULE, code="PXT303", path=map_path, line=line,
+                    col=0,
                     message=f"{MAPS_NAME}[{base!r}] key `{k}` names no "
                             f"sim mailbox of protocol `{protocol}` "
                             "(stale after a kernel refactor?)"))
+        if map_file == root / MAPS:
+            continue            # a copy: the twin's classes are not here
+        classes = host_message_classes(map_file)
+        for k, val in mapping.items():
+            if val not in classes:
+                out.append(Violation(
+                    rule=RULE, code="PXT304", path=map_path, line=line,
+                    col=0,
+                    message=f"{TWIN_MAP_NAME} value `{val}` (key `{k}`) "
+                            "names no @register_message class in the "
+                            "host module — the fabric matches type "
+                            "names, a typo never fires"))
     return out

@@ -1,19 +1,20 @@
-"""Command-line entry points of the torch sim runtime (the sim side of
-the JAX package's ``cli.py``: the same subcommands, flags, JSON output
-and exit codes).
+"""Command-line entry points of the port (the JAX package's ``cli.py``:
+the same subcommands, flags, JSON output and exit codes).
 
     python -m paxi_tpu_torch sim -algorithm paxos -groups 100000 \
         -replicas 5 -slots 64 -steps 104
-    python -m paxi_tpu_torch profile | trace info|replay|shrink FILE |
-        hunt run|status|report --no-host | scenario list|run |
+    python -m paxi_tpu_torch profile | trace info|replay|shrink|host FILE |
+        hunt run|status|report [--no-host] | scenario list|run [-host] |
         workload list|run | metrics --series | lint [PATHS]
 
 Every subcommand that runs the sim takes ``-device``/``--device``: the
-card by default, ``cpu`` to run on the CPU.  ``lint`` is the port's
-paxi-lint (``paxi_tpu_torch/analysis``): pure AST, it needs no card.
-The host runtime stays in the JAX package (``server``, ``client``,
-``trace host``, ``scenario run -host``, the hunt's host replay, the
-metrics scrape), as does ``spans``.
+card by default, ``cpu`` to run on the CPU.  The host runtime (``trace
+host``'s projection, ``scenario run -host`` and the hunt's host replay)
+is asyncio Python on the CPU, as in the JAX package; it drives the host
+twins ported so far (``protocols._HOST_MODULES``) and refuses the others.
+``lint`` is the port's paxi-lint (``paxi_tpu_torch/analysis``): pure AST,
+it needs no card.  Serving (``server``, ``client``, the metrics scrape)
+and ``spans`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -140,11 +141,41 @@ def cmd_trace(args) -> int:
         stats["out"] = tr.save(out, mini)
         print(json.dumps(stats))
         return 0
+    if args.trace_cmd == "host":
+        from paxi_tpu_torch.trace.host import (directives_json,
+                                               host_directives, local_ids)
+        cfg = t.sim_config()
+        ids = local_ids(cfg.n_replicas, cfg.n_zones)
+        if args.all:
+            # this trace's projection coverage under every host-registry
+            # protocol's TRACE_MSG_MAP: which protocols could replay the
+            # schedule exactly, and what each one loses
+            from paxi_tpu_torch.hunt.classify import coverage_of
+            from paxi_tpu_torch.trace.host import (TRACE_MSG_MAPS,
+                                                   trace_msg_map)
+            out = {}
+            for proto in sorted(TRACE_MSG_MAPS):
+                m = trace_msg_map(proto)
+                if not m:
+                    continue
+                out[proto] = coverage_of(t, ids=ids, msg_map=m)
+            print(json.dumps({"trace_protocol": t.protocol,
+                              "coverage": out}))
+            return 0
+        dirs, stats = host_directives(t, ids, step_s=args.step_ms / 1e3)
+        payload = {"directives": directives_json(dirs), "stats": stats}
+        if args.seq:
+            from paxi_tpu_torch.trace.host import seq_schedule
+            sched, sstats = seq_schedule(t, ids)
+            payload["sequenced"] = sched.to_json()
+            payload["seq_stats"] = sstats
+        print(json.dumps(payload))
+        return 0
     raise AssertionError(args.trace_cmd)
 
 
 def cmd_hunt(args) -> int:
-    """The divergence-hunting campaign engine (host replay off)."""
+    """The divergence-hunting campaign engine."""
     from paxi_tpu_torch.hunt import Campaign
 
     try:
@@ -201,19 +232,49 @@ def cmd_scenario(args) -> int:
     except ValueError as e:
         print(f"scenario: {e}", file=sys.stderr)
         return 2
-    if args.host:
-        print("scenario: -host drives the asyncio host runtime on the "
-              "virtual-clock fabric, which stays in the JAX package: "
-              "python -m paxi_tpu scenario run -host", file=sys.stderr)
-        return 2
 
-    from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import FuzzConfig, SimConfig, simulate
+    from paxi_tpu_torch.sim import FuzzConfig, SimConfig
     cfg = SimConfig(n_replicas=args.replicas, n_slots=args.slots,
                     n_keys=args.keys, n_zones=args.zones,
                     n_objects=args.objects, locality=args.locality)
-    # switchnet events compile into the static sim knobs
+    # switchnet events compile into the static sim knobs, and ride into
+    # the host replay's config, where the protocol's HUNT_FABRIC_SETUP
+    # builds the matching switch tier
     cfg = scn.apply_switch(cfg, scenario)
+
+    if args.host:
+        # the scenario compiles into the virtual-clock fabric's fault
+        # surface (standing per-edge WAN latencies, per-step crash sets)
+        # and the hunt's replay core drives the host cluster under it;
+        # the randomized-fault knobs are sim-only
+        if args.p_drop or args.max_delay > 1:
+            print("scenario: -p_drop/-max_delay apply to the sim "
+                  "runtime only (the -host fabric runs the scenario's "
+                  "deterministic schedule)", file=sys.stderr)
+            return 2
+        import asyncio
+
+        from paxi_tpu_torch.host.simulation import chan_config
+        from paxi_tpu_torch.hunt.classify import (replay_schedule,
+                                                  require_host_twin)
+        try:
+            require_host_twin(args.algorithm)
+        except ValueError as e:
+            print(f"scenario: {e}", file=sys.stderr)
+            return 2
+        hcfg = chan_config(args.replicas, zones=args.zones,
+                           tag="scenario")
+        sched = scn.seq_schedule_of(scenario, hcfg.ids, args.steps)
+        out = asyncio.run(replay_schedule(args.algorithm, cfg, sched,
+                                          cfg=hcfg, seed=args.seed))
+        payload = dict(out.to_json(), runtime="host",
+                       algorithm=args.algorithm, scenario=scenario.name,
+                       steps=args.steps)
+        print(json.dumps(payload))
+        return 0 if not out.violated else 1
+
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import simulate
     proto = sim_protocol(args.algorithm)
     fuzz = scn.with_scenario(
         FuzzConfig(p_drop=args.p_drop, max_delay=args.max_delay),
@@ -490,10 +551,21 @@ def build_parser() -> argparse.ArgumentParser:
                      type=int, default=200)
     for sp in (ti, tre, tsh):
         _device_arg(sp)
+    tho = tsub.add_parser("host",
+                          help="project onto host fault directives")
+    tho.add_argument("file")
+    tho.add_argument("-step_ms", "--step-ms", dest="step_ms",
+                     type=float, default=50.0)
+    tho.add_argument("-seq", "--seq", action="store_true",
+                     help="also emit the sequenced (virtual-clock) "
+                          "delivery schedule")
+    tho.add_argument("-all", "--all", action="store_true",
+                     help="batch mode: projection coverage under every "
+                          "protocol's TRACE_MSG_MAP")
     t.set_defaults(fn=cmd_trace)
 
     h = sub.add_parser("hunt",
-                       help="divergence-hunting campaigns (--no-host)")
+                       help="divergence-hunting campaigns (sim->host)")
     hsub = h.add_subparsers(dest="hunt_cmd", required=True)
     for name, desc in (("run", "run/resume a campaign"),
                        ("status", "print campaign progress"),
@@ -513,8 +585,7 @@ def build_parser() -> argparse.ArgumentParser:
                         dest="shrink_trials", type=int, default=120)
         hp.add_argument("-no_host", "--no-host", dest="no_host",
                         action="store_true",
-                        help="no host replay (coverage-only verdicts; "
-                             "required: the host runtime is not ported)")
+                        help="skip host replay (coverage-only verdicts)")
         hp.add_argument("-traces_dir", "--traces-dir",
                         dest="traces_dir", default="",
                         help="seed corpus from this trace dir on first "
@@ -527,12 +598,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="WAN topology / churn / reconfig scenarios")
     scsub = sc.add_subparsers(dest="scenario_cmd", required=True)
     scl = scsub.add_parser("list", help="print the named-scenario catalog")
-    scr = scsub.add_parser("run", help="run one named scenario on the sim")
+    scr = scsub.add_parser("run", help="run one named scenario on the sim "
+                           "or the host fabric")
     scr.add_argument("-scenario", "--scenario", default="wan3z",
                      help="a name from `scenario list`")
     scr.add_argument("-algorithm", "--algorithm", default="wpaxos")
     scr.add_argument("-host", "--host", action="store_true",
-                     help="(the JAX package's host fabric: refused)")
+                     help="run on the host runtime over the "
+                          "virtual-clock fabric instead of the sim")
     scr.add_argument("-groups", type=int, default=16)
     scr.add_argument("-steps", type=int, default=120)
     scr.add_argument("-replicas", type=int, default=9)

@@ -1,5 +1,5 @@
-"""Witness classification, the pure half (the port's copy of the JAX
-package's ``hunt/classify.py`` without the host replay).
+"""Witness classification (the port's copy of the JAX package's
+``hunt/classify.py``).
 
 The verdict taxonomy (every witness lands in exactly one):
 
@@ -13,43 +13,60 @@ The verdict taxonomy (every witness lands in exactly one):
   one-slot wheel's collision-as-loss.
 
 ``coverage_of`` and ``classify`` are pure functions of the trace and a
-host outcome.  The host outcome comes from the asyncio host runtime on
-the virtual-clock fabric, which lives in the JAX package only: the port
-classifies with host replay off (``--no-host``), which reports a
-mappable witness honestly as a coverage gap, and refuses to be asked for
-a replay.  The JAX package classifies the port's corpus with
-``python -m paxi_tpu hunt run --traces-dir <the corpus directory>``
-(its ``Corpus.seed_from`` reads any ``*.npz`` trace).
+host outcome.  The host outcome comes from ``replay_witness``: the
+witness's schedule projected onto the virtual-clock fabric
+(``trace/host.seq_schedule``) and replayed against the protocol's asyncio
+host twin (``protocols._HOST_MODULES``) on the CPU, as in the JAX
+package, so two replays of one file give the same outcome and the same
+span timeline.  A protocol whose host twin is still queued is refused
+with a ``ValueError`` naming ``--no-host``, which classifies a mappable
+witness as a coverage gap instead.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
+import importlib
+import random
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 from paxi_tpu_torch.trace.format import Trace
-from paxi_tpu_torch.trace.host import local_ids, seq_schedule
+from paxi_tpu_torch.trace.host import (host_algorithm, local_ids,
+                                       seq_schedule, trace_msg_map)
 
 OUTCOMES = ("reproduced", "diverged", "unmappable")
 
-HOST_REPLAY_REFUSED = (
-    "host replay needs the asyncio host runtime, which paxi_tpu_torch does "
-    "not port: classify with host replay off (--no-host), or classify this "
-    "corpus in the JAX package with `python -m paxi_tpu hunt run "
-    "--traces-dir <corpus dir>`")
+
+def require_host_twin(protocol: str) -> None:
+    """Raise ``ValueError`` when ``protocol`` replays against a host twin
+    the port has not ported yet (its witnesses still classify with host
+    replay off)."""
+    from paxi_tpu_torch.protocols import _HOST_MODULES
+    base = host_algorithm(protocol) or protocol
+    if base not in _HOST_MODULES:
+        raise ValueError(
+            f"protocol {protocol!r}: its host twin ({base!r}) is queued "
+            "for a later slice of the port (ported: "
+            f"{', '.join(sorted(_HOST_MODULES))}); classify with host "
+            "replay off (--no-host)")
 
 
 @dataclass
 class HostOutcome:
     """What the host runtime did under the replayed schedule."""
 
-    anomalies: int = 0          # linearizability anomalies
+    anomalies: int = 0          # linearizability anomalies (history.py)
     oracle_violations: int = 0  # the protocol's HUNT_ORACLE counter
     ops_ok: int = 0
     ops_failed: int = 0
     steps: int = 0
     fabric_stats: Dict[str, int] = field(default_factory=dict)
+    # merged span timeline of the replay (obs/): fabric-clock timestamps
+    # and deterministic trace/span ids, so two replays of one witness
+    # produce byte-identical timelines
     spans: list = field(default_factory=list)
 
     @property
@@ -58,6 +75,8 @@ class HostOutcome:
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
+        # the timeline is an artifact, not a verdict: the JSON carries
+        # its count
         d.pop("spans")
         d["span_count"] = len(self.spans)
         return d
@@ -158,20 +177,188 @@ def classify(sim_violations: int, coverage: dict,
         sim=sim, coverage=coverage, host=host.to_json())
 
 
-def classify_witness(trace: Trace, *,
-                     host_replay: bool = False) -> Classification:
-    """Coverage, then the verdict.  A witness the host surface cannot
-    express classifies ``unmappable`` as in the reference; a mappable one
-    reports the disabled replay as a coverage gap.  ``host_replay=True``
-    on a mappable witness raises ValueError: the host runtime is not
-    ported, and no verdict is made up in its place."""
+# ---- the impure half: virtual-clock host replay -------------------------
+# tail_steps: the fault-free logical tail after the replayed schedule.
+# 10 steps let in-flight request/reply rounds settle, which is all most
+# protocols need; a protocol whose *evidence-driven* repair path must
+# converge post-schedule (bpaxos's gap-strike takeover needs several
+# commits to strike, recover the hole, and surface the divergence the
+# schedule set up) declares a longer tail via ``HUNT_TAIL_STEPS`` so
+# every other protocol's replay doesn't pay for it.
+async def replay_witness(trace: Trace, *, tail_steps: Optional[int] = None,
+                         op_every: int = 2, op_timeout: float = 5.0
+                         ) -> HostOutcome:
+    """Replay ``trace``'s schedule against the host runtime on the
+    virtual-clock fabric and report what the host did.
+
+    Protocol hooks (host module attributes):
+    - ``HUNT_DRIVER(cluster, fabric)``: install a protocol-specific
+      per-step driver instead of the default KV workload;
+    - ``HUNT_ORACLE(cluster) -> int``: a safety-violation counter read
+      after the replay (in addition to the history checker);
+    - ``HUNT_TAIL_STEPS``: fault-free tail length after the schedule
+      (default 10; see the note above).
+    """
+    algorithm = host_algorithm(trace.protocol)
+    if algorithm is None:
+        raise ValueError(f"{trace.protocol!r} has no host runtime")
+    require_host_twin(trace.protocol)
+    scfg = trace.sim_config()
+    from paxi_tpu_torch.host.simulation import chan_config
+    cfg = chan_config(scfg.n_replicas, zones=scfg.n_zones, tag="hunt")
+    sched, _ = seq_schedule(trace, cfg.ids,
+                            msg_map=trace_msg_map(trace.protocol))
+    return await replay_schedule(
+        algorithm, scfg, sched, cfg=cfg, seed=trace.seed,
+        tail_steps=tail_steps, op_every=op_every, op_timeout=op_timeout)
+
+
+async def replay_schedule(algorithm: str, scfg, sched, *, cfg=None,
+                          seed: int = 0,
+                          tail_steps: Optional[int] = None,
+                          op_every: int = 2, op_timeout: float = 5.0
+                          ) -> HostOutcome:
+    """Drive the host runtime under an arbitrary ``SeqSchedule`` on the
+    virtual-clock fabric — the schedule-level core of
+    ``replay_witness``, also the scenario engine's host runner (CLI
+    ``scenario run --host`` compiles a Scenario into a SeqSchedule via
+    ``scenarios.compile.seq_schedule_of`` and lands here).  ``cfg`` is
+    the cluster config whose ids the schedule was keyed with (built
+    from ``scfg``'s geometry when omitted — pass the one you projected
+    the schedule with so the two cannot drift)."""
+    from paxi_tpu_torch.host.fabric import VirtualClockFabric
+    from paxi_tpu_torch.host.history import History
+    from paxi_tpu_torch.host.simulation import Cluster, chan_config
+    from paxi_tpu_torch.core.command import Command, Request
+    from paxi_tpu_torch.obs import TRACE_PROP, SpanCollector, TraceCtx, merge
+    from paxi_tpu_torch.protocols import _HOST_MODULES
+
+    require_host_twin(algorithm)
+    if cfg is None:
+        cfg = chan_config(scfg.n_replicas, zones=scfg.n_zones,
+                          tag="hunt")
+    fabric = VirtualClockFabric(sched)
+    host_mod = importlib.import_module(_HOST_MODULES[algorithm])
+    # fabric-tier hook (the switchnet protocols): interpose whatever
+    # in-network tier the protocol speaks through BEFORE the replicas
+    # attach, so their constructors see it on the wire
+    fab_setup = getattr(host_mod, "HUNT_FABRIC_SETUP", None)
+    if fab_setup is not None:
+        fab_setup(fabric, scfg)
+    cluster = Cluster(algorithm, cfg=cfg, http=False, fabric=fabric)
+    await cluster.start()
+    if tail_steps is None:
+        tail_steps = getattr(host_mod, "HUNT_TAIL_STEPS", 10)
+    out = HostOutcome(steps=sched.n_steps)
+    history = None
+    ops: list = []
+    col = None
+    try:
+        driver = getattr(host_mod, "HUNT_DRIVER", None)
+        if driver is not None:
+            driver(cluster, fabric)
+        else:
+            # default closed-ish-loop KV workload: deterministic op
+            # stream (trace-seeded), round-robin over replicas, writes
+            # of unique values so the history checker's read-from
+            # edges are unambiguous
+            history = History()
+            rng = random.Random(seed)
+            ids = sorted(cluster.ids)
+            n_keys = max(1, min(scfg.n_keys, 4))
+            # harness-side collector: every injected op opens a root
+            # span with a DETERMINISTIC trace id (h<op#>) on the
+            # fabric clock — no sampler, no pid — so the stitched
+            # timeline of a witness replay is itself replayable
+            col = SpanCollector(node="client", fabric=fabric)
+
+            async def one_op(replica, key: int, value: bytes, sp):
+                fut = asyncio.get_running_loop().create_future()
+                start = time.monotonic()
+                props = ({TRACE_PROP: sp.child().encode()}
+                         if sp is not None else {})
+                cluster[replica].handle_client_request(Request(
+                    command=Command(key, value, "hunt",
+                                    len(ops)), properties=props,
+                    reply_to=fut))
+                try:
+                    rep = await asyncio.wait_for(fut, op_timeout)
+                except asyncio.TimeoutError:
+                    out.ops_failed += 1
+                    return
+                finally:
+                    col.finish(sp)
+                end = time.monotonic()
+                if rep.err is not None:
+                    out.ops_failed += 1
+                    return
+                out.ops_ok += 1
+                if value:
+                    history.add(key, value, None, start, end)
+                else:
+                    history.add(key, None, rep.value, start, end)
+
+            def issue(t: int) -> None:
+                if t % op_every:
+                    return
+                replica = ids[(t // op_every) % len(ids)]
+                key = rng.randrange(n_keys)
+                write = rng.random() < 0.6
+                value = f"w{t}".encode() if write else b""
+                sp = col.start("request", TraceCtx(f"h{len(ops)}"),
+                               key=str(key),
+                               op="w" if write else "r")
+                ops.append(asyncio.ensure_future(
+                    one_op(replica, key, value, sp)))
+
+            fabric.on_step(issue)
+
+        await fabric.run(sched.n_steps, drain=True)
+        # a fault-free logical tail so in-flight request/reply rounds
+        # can finish before the oracle reads the cluster
+        fabric.sched = None
+        await fabric.run(tail_steps, drain=True)
+        if ops:
+            await asyncio.wait(ops, timeout=op_timeout)
+        for f in ops:
+            if not f.done():
+                f.cancel()
+                out.ops_failed += 1
+        if history is not None:
+            out.anomalies = history.linearizable()
+        oracle = getattr(host_mod, "HUNT_ORACLE", None)
+        if oracle is not None:
+            out.oracle_violations = int(oracle(cluster))
+        out.fabric_stats = dict(fabric.stats)
+        span_lists = [r.spans.export()
+                      for r in cluster.replicas.values()]
+        if col is not None:
+            span_lists.append(col.export())
+        out.spans = merge(span_lists)
+    finally:
+        await cluster.stop()
+    return out
+
+
+def classify_witness(trace: Trace, *, host_replay: bool = True,
+                     **replay_kw) -> Classification:
+    """The engine's one-stop path: coverage -> (maybe) replay ->
+    verdict.  Synchronous wrapper (each replay gets a fresh loop).  A
+    mappable witness of a protocol whose host twin is queued raises
+    ``ValueError`` (``require_host_twin``) unless ``host_replay`` is
+    off."""
     cov = coverage_of(trace)
-    if cov["unmapped_mailboxes"] or cov["dups"] > 0:
-        return classify(trace.meta.get("group_violations", -1), cov, None)
-    if host_replay:
-        raise ValueError(HOST_REPLAY_REFUSED)
-    return Classification(
-        outcome="unmappable",
-        reason="host replay disabled (--no-host)",
-        sim={"violations": int(trace.meta.get("group_violations", -1))},
-        coverage=cov)
+    if cov["unmapped_mailboxes"] or cov["dups"] > 0 or not host_replay:
+        host = None
+        if not (cov["unmapped_mailboxes"] or cov["dups"] > 0):
+            # replay disabled by caller: report honestly as a coverage
+            # gap rather than guessing a verdict
+            return Classification(
+                outcome="unmappable",
+                reason="host replay disabled (--no-host)",
+                sim={"violations":
+                     int(trace.meta.get("group_violations", -1))},
+                coverage=cov)
+    else:
+        host = asyncio.run(replay_witness(trace, **replay_kw))
+    return classify(trace.meta.get("group_violations", -1), cov, host)

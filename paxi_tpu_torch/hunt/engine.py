@@ -1,5 +1,5 @@
 """The divergence-hunting campaign engine (the port's copy of the JAX
-package's ``hunt/engine.py``, with host replay off).
+package's ``hunt/engine.py``).
 
 One campaign is a budgeted sweep of the adversarial case matrix
 (``hunt/cases.py``), per protocol:
@@ -7,7 +7,9 @@ One campaign is a budgeted sweep of the adversarial case matrix
     fuzz the sim  ->  capture each violating run as a trace
                   ->  dedup against the corpus (schedule hash)
                   ->  ddmin-shrink new witnesses to minimal schedules
-                  ->  classify by projection coverage (``--no-host``)
+                  ->  replay the minimal witness on the host runtime
+                      through the virtual-clock fabric (on the CPU)
+                  ->  classify: reproduced / diverged / unmappable
 
 State lives under the campaign directory (default ``build/hunt/`` in the
 checkout, apart from the JAX package's ``hunt/``)::
@@ -18,11 +20,13 @@ checkout, apart from the JAX package's ``hunt/``)::
     HUNT_REPORT.md    # human triage report
 
 ``state.json`` (version 1), the corpus and the reports are the JAX
-package's formats, equal to its campaign's with host replay off apart
-from ``wall_s``.  Every completed (case, schedule, seed) run is recorded
-before the next starts, so an interrupted campaign resumes where it left
-off, and a raised budget extends the seed stream.  The runs go on
-``device``: the card unless ``"cpu"`` is asked for.
+package's formats, equal to its campaign's apart from ``wall_s``.  Every
+completed (case, schedule, seed) run is recorded before the next starts,
+so an interrupted campaign resumes where it left off, and a raised
+budget extends the seed stream.  The runs go on
+``device``: the card unless ``"cpu"`` is asked for.  With host replay
+on (the default), every campaign protocol must replay against a ported
+host twin: another one is refused before any run, naming ``--no-host``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from paxi_tpu_torch.hunt import cases as hc
-from paxi_tpu_torch.hunt.classify import HOST_REPLAY_REFUSED, classify_witness
+from paxi_tpu_torch.hunt.classify import classify_witness, require_host_twin
 from paxi_tpu_torch.hunt.corpus import Corpus
 
 _STATE_VERSION = 1
@@ -54,10 +58,8 @@ def default_traces_dir() -> str:
 class Campaign:
     def __init__(self, root=None, protocols: Optional[List[str]] = None,
                  budget: int = 5, quick: bool = False,
-                 shrink_trials: int = 120, host_replay: bool = False,
+                 shrink_trials: int = 120, host_replay: bool = True,
                  traces_dir: Optional[str] = None, log=None, device=None):
-        if host_replay:
-            raise ValueError(HOST_REPLAY_REFUSED)
         self.root = Path(default_campaign_dir() if root is None else root)
         self.cases = hc.hunt_cases(protocols, quick=quick)
         if protocols:
@@ -65,6 +67,9 @@ class Campaign:
             if missing:
                 raise KeyError(f"no hunt cases for protocols {missing}; "
                                f"have {sorted(set(c[0] for c in hc.CASES + hc.DEMO_CASES))}")
+        if host_replay:
+            for protocol in sorted(self.cases):
+                require_host_twin(protocol)
         self.root.mkdir(parents=True, exist_ok=True)
         self.corpus = Corpus(self.root / "corpus")
         self.budget = int(budget)

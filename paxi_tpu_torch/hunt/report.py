@@ -95,18 +95,21 @@ def render_markdown(rep: dict) -> str:
         "## Taxonomy / triage",
         "",
         "- **reproduced** — the host runtime violated safety under the",
-        "  exact replayed schedule: a host bug candidate.",
+        "  exact replayed schedule: a host bug candidate.  Triage:",
+        "  `python -m paxi_tpu_torch trace info corpus/<file>` for the",
+        "  schedule, `trace host corpus/<file>` for the directive",
+        "  projection, then turn it into a regression test driving the",
+        "  directives through `trace.host.apply_immediate`.",
         "- **diverged** — the host stayed safe: either the sim models a",
-        "  fault the host tolerates (a modeling gap) or the",
-        "  occurrence-indexed projection aimed at a send the host never",
-        "  made.",
+        "  fault the host tolerates (modeling gap — compare the kernel",
+        "  against the host handler) or the occurrence-indexed",
+        "  projection aimed at a send the host never made (check the",
+        "  replay's fabric stats in HUNT_REPORT.json).",
         "- **unmappable** — the witness needs events the host surface",
         "  cannot express exactly (baselined kernel-internal mailboxes,",
-        "  message duplication), or host replay was off (`--no-host`,",
-        "  always so in paxi_tpu_torch).  `python -m paxi_tpu_torch trace",
-        "  info|replay corpus/<file>` reads the schedule;",
-        "  `python -m paxi_tpu hunt run --traces-dir corpus` (the JAX",
-        "  package) replays the corpus on the host runtime.",
+        "  or message duplication), or host replay was off",
+        "  (`--no-host`).  Anything else means a TRACE_MSG_MAP lost",
+        "  coverage (paxi-lint PXT302 will also fire).",
         "",
     ]
     return "\n".join(lines)

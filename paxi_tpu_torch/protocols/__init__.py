@@ -12,11 +12,18 @@ NOOP-committed instead of gap agreement); and the per-group demo kernels
 of the trace and scenario engines, ``fragile_counter`` and
 ``relay_churn``, which violate by design too.  Every sim name of the JAX
 package's registry resolves here.
+
+``_HOST_MODULES`` is the asyncio host runtime's registry (``host_replica``
+resolves a name to its replica factory): the host twins ported so far,
+which the hunt's host replay and ``scenario run -host`` drive.  The JAX
+package's other twins are queued (``trace/host.py`` keeps a copy of their
+``TRACE_MSG_MAP``s, so their witnesses still project).
 """
 
 from __future__ import annotations
 
 import importlib
+from typing import Callable
 
 from paxi_tpu_torch.sim.types import SimProtocol
 
@@ -44,6 +51,17 @@ _SIM_MODULES = {
     "relay_churn": "paxi_tpu_torch.scenarios.demo",
 }
 
+_HOST_MODULES = {
+    # the host twin of the trace engine's demo kernel: the hunt's
+    # end-to-end reproduction fixture
+    "fragile_counter": "paxi_tpu_torch.trace.demo_host",
+    "paxos": "paxi_tpu_torch.protocols.paxos.host",
+    "switchpaxos": "paxi_tpu_torch.protocols.switchpaxos.host",
+    # the seeded twin with a matching host twin: its drop witnesses are
+    # the in-fabric tier's reproduced control
+    "switchpaxos_nogap": "paxi_tpu_torch.protocols.switchpaxos.nogap",
+}
+
 
 def sim_protocol(name: str) -> SimProtocol:
     """The sim kernel registered under ``name``."""
@@ -54,3 +72,14 @@ def sim_protocol(name: str) -> SimProtocol:
                        f"known: {sorted(_SIM_MODULES)}") from None
     module, _, attr = module.partition(":")
     return getattr(importlib.import_module(module), attr or "PROTOCOL")
+
+
+def host_replica(name: str) -> Callable:
+    """The host replica factory (``new_replica``) registered under
+    ``name``."""
+    try:
+        module = _HOST_MODULES[name]
+    except KeyError:
+        raise KeyError(f"unknown host protocol {name!r}; "
+                       f"known: {sorted(_HOST_MODULES)}") from None
+    return importlib.import_module(module).new_replica

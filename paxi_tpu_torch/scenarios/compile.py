@@ -1,6 +1,6 @@
-"""Scenarios onto the sim's fuzz surface, and the named-scenario catalog
-(the port's copy of the JAX package's ``scenarios/compile.py``, its sim
-half: the host-fabric compiler ``seq_schedule_of`` is not ported).
+"""Scenarios onto the sim's fuzz surface and the host fabric's, and the
+named-scenario catalog (the port's copy of the JAX package's
+``scenarios/compile.py``).
 
 A scenario rides INSIDE the FuzzConfig (``with_scenario``): the exchange
 layer folds its zone-latency plane into the delay draw and its kill
@@ -12,8 +12,9 @@ replayable bit for bit, shrinkable.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Sequence
 
+from paxi_tpu_torch.scenarios import schedule as _sched
 from paxi_tpu_torch.scenarios.spec import (LeaderChurn, Reconfig, Scenario,
                                            SwitchChurn, ZoneLatency,
                                            ZoneOutage)
@@ -38,6 +39,34 @@ def apply_switch(cfg, scn: Scenario):
     sw = scn.switch
     return cfg.with_(sw_down_start=sw.start, sw_down_period=sw.period,
                      sw_down_for=sw.down_for)
+
+
+def seq_schedule_of(scn: Scenario, ids: Sequence, n_steps: int):
+    """Compile ``scn`` into the virtual-clock fabric's fault surface.
+    ``ids`` is the host config's replica-ID list; sim replica r maps to
+    ``sorted(ids)`` position r (the zone-block layout both runtimes
+    derive from the id list, same as trace/host.py projections)."""
+    from paxi_tpu_torch.trace.host import SeqSchedule, id_order
+
+    ids = [str(i) for i in sorted(ids, key=id_order)]
+    n = len(ids)
+    scn.validate(n)
+    edge_delay: Dict = {}
+    if scn.zones is not None:
+        base = _sched.delay_base(scn, n)
+        for i in range(n):
+            for j in range(n):
+                if i != j and int(base[i, j]) > 1:
+                    edge_delay[(ids[i], ids[j])] = int(base[i, j]) - 1
+    crashed: Dict[str, list] = {}
+    if scn.kills_nodes():
+        plane = _sched.crashed_plane(scn, n, n_steps)
+        for r in range(n):
+            ts = [t for t in range(n_steps) if plane[t, r]]
+            if ts:
+                crashed[ids[r]] = ts
+    return SeqSchedule(n_steps=n_steps, crashed=crashed,
+                       edge_delay=edge_delay)
 
 
 # ---- named scenarios -----------------------------------------------------

@@ -6,10 +6,10 @@ package's prints for the same arguments, compared after ``json.loads``
 ``sim`` fault-free and fuzzed, ``scenario run`` (sim side) and ``list``,
 ``workload run`` and ``list``, ``metrics --series`` (JSON and CSV),
 ``trace info|replay|shrink`` on a JAX-captured trace, ``hunt
-run|status|report --no-host``, and ``profile`` (its keys; timings differ
-by nature).  Exit codes are the reference's, and the port refuses what
-it does not port (``scenario run -host``, a hunt with host replay) with
-exit code 2.
+run|status|report --no-host``, ``scenario run -host`` (the host runtime
+on the virtual-clock fabric), and ``profile`` (its keys; timings differ
+by nature).  Exit codes are the reference's, and the port refuses a host
+replay of a protocol whose host twin is queued with exit code 2.
 """
 
 import contextlib
@@ -92,6 +92,17 @@ def test_scenario_refusals():
     (j, _), (p, _) = both(["scenario", "run", "-scenario", "wan3z",
                            "-replicas", "2"])
     assert j == p == 2
+    # the host fabric: paxos under wan3z prints the JAX package's line
+    # and exit code (both host runtimes count one anomaly in this run)
+    (line,) = assert_same(["scenario", "run", "-host", "-scenario", "wan3z",
+                           "-algorithm", "paxos", "-replicas", "3",
+                           "-zones", "3", "-steps", "40"], rc=1)
+    assert line["runtime"] == "host" and line["ops_ok"] > 0
+    assert line["fabric_stats"]["edge_delayed"] > 0
+    (j, _), (p, _) = both(["scenario", "run", "-host", "-algorithm", "paxos",
+                           "-replicas", "3", "-zones", "3", "-p_drop", "0.1"])
+    assert j == p == 2
+    # wpaxos's host twin is queued: refused, naming --no-host
     rc, out = _run(pcli.main, ["scenario", "run", "-host", "-device",
                                "cpu"])
     assert rc == 2 and out == ""
@@ -180,10 +191,13 @@ def test_hunt_run_status_report(tmp_path):
     for cmd in ("run", "status", "report"):
         assert lines["port", cmd] == lines["jax", cmd], cmd
     assert lines["port", "run"][0]["totals"]["witnesses"] == 1
-    # the port refuses a host replay; status and report need none
+    # the port refuses a host replay whose host twin is queued; status
+    # and report need none
     d = ["--dir", str(tmp_path / "port"), "--protocols", "fragile_counter",
          "--device", "cpu"]
-    assert _run(pcli.main, ["hunt", "run"] + d)[0] == 2
+    assert _run(pcli.main, ["hunt", "run", "--dir", str(tmp_path / "port"),
+                            "--protocols", "wankeeper_nofloor",
+                            "--device", "cpu"])[0] == 2
     rc, out = _run(pcli.main, ["hunt", "status", "--budget", "1"] + d)
     assert rc == 0 and json.loads(out) == lines["port", "status"][0]
     (j, _), (p, _) = both(["hunt", "status", "--dir", str(tmp_path / "x"),

@@ -203,15 +203,16 @@ def test_classify_witness_without_host():
     from paxi_tpu.hunt import classify_witness as jcw
     for name, kw in FIXTURES.items():
         jt, pt = fixture_trace("jax", **kw), fixture_trace("torch", **kw)
-        assert P.classify_witness(pt).to_json() \
+        assert P.classify_witness(pt, host_replay=False).to_json() \
             == jcw(jt, host_replay=False).to_json(), name
-    # the unmappable witnesses need no host; a mappable one asked for a
-    # host replay is refused, naming --no-host
+    # with host replay (the default, as in the JAX package) the verdicts
+    # are the JAX package's too: the unmappable witnesses need no host,
+    # a mappable one replays on both host runtimes
     assert P.classify_witness(fixture_trace("torch", **FIXTURES["dup"]),
                               host_replay=True).outcome == "unmappable"
-    with pytest.raises(ValueError, match="--no-host"):
-        P.classify_witness(fixture_trace("torch", **FIXTURES["drop"]),
-                           host_replay=True)
+    for name, kw in FIXTURES.items():
+        assert P.classify_witness(fixture_trace("torch", **kw)).to_json() \
+            == jcw(fixture_trace("jax", **kw)).to_json(), name
 
 
 @pytest.fixture(scope="module")
@@ -240,7 +241,7 @@ def test_coverage_of_jax_capture(jax_witness):
         ids = phost.local_ids(3)
         assert phost.seq_schedule(pt, ids)[0].to_json() \
             == jseq(jt, ids)[0].to_json()
-        assert P.classify_witness(pt).to_json() \
+        assert P.classify_witness(pt, host_replay=False).to_json() \
             == jcw(jt, host_replay=False).to_json()
 
 
@@ -285,7 +286,7 @@ def _campaigns(tmp_path, protocol, budget, shrink_trials, seeds_dir=None):
               shrink_trials=shrink_trials, log=lambda m: None,
               traces_dir=str(seeds_dir or tmp_path / "no_traces"))
     j = JCampaign(tmp_path / "jax", host_replay=False, **kw)
-    p = P.Campaign(tmp_path / "port", device="cpu", **kw)
+    p = P.Campaign(tmp_path / "port", host_replay=False, device="cpu", **kw)
     return j, p
 
 
@@ -349,8 +350,9 @@ def test_campaign_classifies_a_seeded_backlog(jax_witness, tmp_path):
 def test_campaign_refusals(tmp_path):
     with pytest.raises(KeyError, match="no hunt cases"):
         P.Campaign(tmp_path / "a", protocols=["nope"], device="cpu")
+    # host replay on a protocol whose host twin is queued
     with pytest.raises(ValueError, match="--no-host"):
-        P.Campaign(tmp_path / "b", protocols=["fragile_counter"],
+        P.Campaign(tmp_path / "b", protocols=["wankeeper_nofloor"],
                    host_replay=True, device="cpu")
     with pytest.raises(ValueError, match="v7"):
         (tmp_path / "c").mkdir()

@@ -51,7 +51,19 @@ def test_files_found():
                    "protocols/wankeeper/sim_sw.py",
                    "protocols/bpaxos/sim_sw.py",
                    "protocols/wpaxos/sim_sw.py", "analysis/purity.py",
-                   "analysis/crossflow.py", "analysis/project.py"):
+                   "analysis/crossflow.py", "analysis/project.py",
+                   # the host replay: core, host, obs, utils, the twins
+                   "core/__init__.py", "core/ident.py", "core/ballot.py",
+                   "core/command.py", "core/config.py", "core/quorum.py",
+                   "core/db.py", "obs/__init__.py", "obs/span.py",
+                   "obs/sample.py", "obs/collect.py", "obs/stitch.py",
+                   "utils/__init__.py", "utils/log.py", "host/__init__.py",
+                   "host/codec.py", "host/transport.py", "host/fabric.py",
+                   "host/socket.py", "host/batch.py", "host/node.py",
+                   "host/simulation.py", "host/history.py",
+                   "trace/demo_host.py", "protocols/paxos/host.py",
+                   "switchnet/switch.py", "protocols/switchpaxos/host.py",
+                   "protocols/switchpaxos/nogap.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
@@ -78,3 +90,32 @@ def test_registry_modules_are_in_the_port():
         <= set(_SIM_MODULES)
     for name in _SIM_MODULES:
         assert sim_protocol(name).name == name
+
+
+def test_host_registry_modules_are_in_the_port():
+    from paxi_tpu_torch.protocols import _HOST_MODULES, host_replica
+    assert sorted(_HOST_MODULES) == ["fragile_counter", "paxos",
+                                     "switchpaxos", "switchpaxos_nogap"]
+    for name, module in _HOST_MODULES.items():
+        assert module.startswith("paxi_tpu_torch.")
+        assert host_replica(name).__module__ == module
+
+
+def test_host_replay_loads_no_jax():
+    """The host replay path, imported alone, loads neither JAX nor the
+    JAX package (beyond what the interpreter had loaded at start)."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import paxi_tpu_torch.hunt, paxi_tpu_torch.cli\n"
+        "from paxi_tpu_torch.protocols import _HOST_MODULES, host_replica\n"
+        "[host_replica(n) for n in _HOST_MODULES]\n"
+        "import paxi_tpu_torch.host.simulation, paxi_tpu_torch.obs\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paxi_tpu'))\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
