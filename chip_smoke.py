@@ -26,7 +26,8 @@ non-zero exit code and no result line:
    a state) at world 1 over every plane of an epaxos state of 100,000
    groups; CUDA-event times (median), bytes moved, the bound, and for the
    shift ``out.copy_(x)`` as the library yardstick;
-3. card against CPU: the same seed and a small shape run on both devices
+3. card against CPU: the same seed and a small shape (256 groups x 12
+   steps) run on both devices
    under a fault-free and a fuzzed schedule must give identical final
    state, metrics and violations, for paxos, epaxos, sdpaxos and wpaxos;
 4. the main paths, each read with the launch counts set to 0 just before
@@ -57,7 +58,7 @@ non-zero exit code and no result line:
    timed, and the shift's own path (every state rotated once around the
    ring by ``shift.many``, two launches a call, launch counts read around
    it); the sharded runs of paxos, sdpaxos and wpaxos
-   at 256 groups x 30 steps, fault-free and fuzzed, against the same
+   at 256 groups x 12 steps, fault-free and fuzzed, against the same
    sharded runs on four CPU ranks (identical gathered state, metrics and
    violations); ``dryrun_multichip``; and the sharded north star, paxos
    at 100,000 groups x 5 x 64 for 104 steps over the four ranks, which
@@ -157,7 +158,20 @@ non-zero exit code and no result line:
    (``python -m paxi_tpu_torch lint``) reports under PXK104 or PXK107,
    kept or baselined, and the flagged lines that never fired are printed
    as static-only; the phase must take under 30 s;
-13. the kernel summary line, the ``nvidia-smi`` line, and last the result
+13. the host twins (slice 14): a hunt micro-campaign through ``cli.main``
+   (``hunt run --protocols bpaxos_noread,relay_churn --budget 1 --quick
+   --shrink-trials 4``, host replay on, no corpus seed): every witness
+   classified on its twin (none unclassified; the noread and relay_churn
+   controls ``reproduced``), each run's violations
+   and progress equal to the CPU's, one line a witness with its host
+   outcome read twice more from its file; phase 5's ``wpaxos_thinq1`` and
+   phase 8's ``wankeeper_nofloor`` witnesses (100k captures) classified
+   twice each, equal, a verdict with a host outcome replayed twice more;
+   ``scenario run -host`` for epaxos, wpaxos (3 x 3) and wankeeper (3 x
+   3, 24 steps) under wan3z and relay_churn under churn, each equal to
+   the JAX package's line on the CPU (``SCENARIO_TWIN_LINES``); the phase
+   must take under 60 s;
+14. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -191,8 +205,8 @@ SEED = 0
 GROUPS, REPLICAS = 100_000, 5
 SHARD_WORLD = 4                      # ranks sharing the card in phase 6
 # the card-against-CPU runs (phases 3 and 6); 60 steps until phase 5
-# came, 30 until phase 8 did
-SMALL_GROUPS, SMALL_STEPS = 256, 20
+# came, 30 until phase 8 did, 20 until phase 13 did
+SMALL_GROUPS, SMALL_STEPS = 256, 12
 WARMUP_STEPS = 8                     # the main paths' warm-up run
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 # H100 SXM int32 lanes: 64 a clock an SM, 132 SMs at 1.98 GHz (NVIDIA's
@@ -538,6 +552,81 @@ AUDIT_RUNS = (
      DEMO_CASES["relay_churn"][1][0]),
     *((k, c, "fault_free") for k, c in SW_SMALL_CFGS.items()),
 )
+
+# phase 13: the host twins (slice 14).  A hunt micro-campaign over the
+# seeded twins with a matching host twin (bpaxos_noread, relay_churn: the
+# reproduced controls), host replay on, its corpus seeded with nothing;
+# phase 5's and phase 8's 100k witnesses classified on their base
+# protocols' twins; and ``scenario run -host``
+# lines, each held to the line ``python -m paxi_tpu scenario run -host``
+# prints for the same arguments on the CPU, exit code included.  The
+# wankeeper twin's watchdog sleeps 50 ms of wall time between token
+# retries (both packages): its line is taken at 24 steps, whose replay
+# (~20 ms on a CPU) ends before the first tick and whose ops all complete.
+# The wankeeper BUG_DEMO stays out of the campaign: its 16-group run takes
+# 13.2 s on the card (dispatch-bound), ~66 s with its capture and shrink,
+# for a witness whose p2b drops leave it unmappable; phase 8's 100k
+# witness of it is classified below instead
+TWIN_HUNT_PROTOCOLS = ("bpaxos_noread", "relay_churn")
+TWIN_HUNT_ARGV = ["--protocols", ",".join(TWIN_HUNT_PROTOCOLS),
+                  "--budget", "1", "--quick", "--shrink-trials", "4"]
+TWIN_HUNT_DIR = SCRATCH_DIR + "/hunt_twins"
+NOFLOOR_WITNESS = SCRATCH_DIR + "/twin_witnesses/wankeeper_nofloor_100k"
+THINQ1_WITNESS = SCRATCH_DIR + "/witness"        # phase 5 saves it
+TWIN_SECONDS = 60
+
+
+def scenario_host_line(algorithm: str, extra, rc: int, steps: int,
+                       scenario: str = "wan3z", **line):
+    """A ``scenario run -host`` argv and the JAX package's (rc, line)."""
+    return (["scenario", "run", "-host", "-scenario", scenario,
+             "-algorithm", algorithm] + list(extra),
+            (rc, {**line, "steps": steps, "runtime": "host",
+                  "algorithm": algorithm, "scenario": scenario}))
+
+
+def fabric_stats(submitted, delivered, edge_delayed=None, dropped_crash=0):
+    out = {"submitted": submitted, "delivered": delivered,
+           "dropped_fault": 0, "delayed_fault": 0,
+           "dropped_crash": dropped_crash, "dropped_cut": 0,
+           "dropped_no_listener": 0}
+    if edge_delayed is not None:
+        out["edge_delayed"] = edge_delayed
+    return out
+
+
+SCENARIO_TWIN_LINES = {
+    "epaxos": scenario_host_line(
+        "epaxos", ["-replicas", "3", "-zones", "3"], 0, 120, anomalies=0,
+        oracle_violations=0, ops_ok=65, ops_failed=0,
+        fabric_stats=fabric_stats(498, 498, 468), span_count=65),
+    # the wpaxos twin's history counts 6 linearizability anomalies under
+    # the wan3z latencies in both packages (PERF.md section 7)
+    "wpaxos": scenario_host_line(
+        "wpaxos", ["-replicas", "9", "-zones", "3"], 1, 120, anomalies=6,
+        oracle_violations=0, ops_ok=65, ops_failed=0,
+        fabric_stats=fabric_stats(1873, 1873, 1299), span_count=114),
+    "wankeeper": scenario_host_line(
+        "wankeeper", ["-replicas", "9", "-zones", "3", "-steps", "24"], 0,
+        24, anomalies=0, oracle_violations=0, ops_ok=17, ops_failed=0,
+        fabric_stats=fabric_stats(160, 160, 46), span_count=28),
+    "relay_churn": scenario_host_line(
+        "relay_churn", ["-replicas", "3"], 1, 120, scenario="churn",
+        anomalies=0, oracle_violations=8, ops_ok=0, ops_failed=0,
+        fabric_stats=fabric_stats(316, 192, dropped_crash=124),
+        span_count=0),
+}
+# one interpreter runs every line (``cli.main`` as ``python -m
+# paxi_tpu_torch`` calls it), apart from the script's own heap
+SCENARIO_LINES_CODE = """
+import contextlib, io, json, sys
+from paxi_tpu_torch import cli
+for argv in json.loads(sys.argv[1]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    print(json.dumps({"rc": rc, "line": json.loads(buf.getvalue())}))
+"""
 
 
 def log(msg: str) -> None:
@@ -1813,7 +1902,8 @@ def capture_replay_phase(name: str, cfg_kw, fuzz_args, steps: int,
 
 def twin_phase(smi: str):
     """The seeded twins at GROUPS groups under DROP: ``wankeeper_nofloor``
-    captured and replayed (``capture_replay_phase``); ``bpaxos_noread``
+    captured, replayed and saved for phase 13 (``capture_replay_phase``);
+    ``bpaxos_noread``
     run, which must violate; noread card against CPU at
     TWIN_SMALL_GROUPS.  Returns the capture's and the noread run's launch
     counts."""
@@ -1822,7 +1912,7 @@ def twin_phase(smi: str):
 
     capture_launches = capture_replay_phase(
         "wankeeper_nofloor", TWIN_CFGS["wankeeper_nofloor"], TWIN_DROP_ARGS,
-        TWIN_STEPS, smi)[0]
+        TWIN_STEPS, smi, save_as=NOFLOOR_WITNESS)[0]
     fuzz = FuzzConfig(**TWIN_DROP_ARGS)
     proto = sim_protocol("bpaxos_noread")
     cfg = SimConfig(**TWIN_CFGS["bpaxos_noread"])
@@ -1971,6 +2061,62 @@ def host_replay(trace):
     return out, time.perf_counter() - t0
 
 
+def campaign_runs_on_cpu(state: dict, protocols):
+    """Each run of a campaign's ``state`` run again on the CPU (its case,
+    schedule and seed): its violations and progress must equal the
+    card's.  Returns the run -> case lookup."""
+    from paxi_tpu_torch import random as tr
+    from paxi_tpu_torch.protocols import sim_protocol
+    from paxi_tpu_torch.sim import make_run
+
+    cases = hunt_cases.hunt_cases(list(protocols), quick=True)
+
+    def case_of(run):
+        name, cfg, scheds, groups, steps, pkey = \
+            cases[run["protocol"]][int(run["run"].split(":")[0])]
+        fz = next(f for f in scheds
+                  if hunt_cases.sched_name(f) == run["schedule"])
+        return name, cfg, fz, groups, steps, pkey
+
+    for run in state["runs"]:
+        name, cfg, fz, groups, steps, pkey = case_of(run)
+        _, metrics, viols = make_run(sim_protocol(name), cfg, fz,
+                                     device="cpu")(
+            tr.PRNGKey(run["seed"]), groups, steps)
+        cpu = (int(viols), int(metrics[pkey]))
+        if cpu != (run["violations"], run["progress"]):
+            fail(f"hunt run {run['protocol']} {run['run']}: card "
+                 f"{(run['violations'], run['progress'])}, CPU {cpu}")
+    return case_of
+
+
+def witness_host_lines(state: dict, corpus, label: str) -> dict:
+    """One ``label`` line a witness of a campaign's ``state``: its verdict,
+    and its host outcome read twice from its file, equal to each other
+    (spans included) and to the campaign's.  Returns witness -> verdict."""
+    verdicts = {}
+    for h, wit in sorted(state["witnesses"].items()):
+        cl = wit["classification"]
+        line = {"witness": h, "protocol": wit["protocol"],
+                "outcome": cl["outcome"], "reason": cl["reason"],
+                "host": cl.get("host"), "host_replay_wall_s": None}
+        if cl["outcome"] not in ("reproduced", "diverged", "unmappable"):
+            fail(f"hunt run: witness {h[:16]} unclassified: {cl}")
+        if cl.get("host") is not None:
+            trace = corpus.load(wit.get("minimal") or h)
+            (a, sa), (b, sb) = host_replay(trace), host_replay(trace)
+            if a.to_json() != b.to_json() or a.spans != b.spans:
+                fail(f"hunt witness {h[:16]}: two host replays differ: "
+                     f"{a.to_json()} / {b.to_json()}")
+            if a.to_json() != cl["host"]:
+                fail(f"hunt witness {h[:16]}: host replay {a.to_json()} "
+                     f"!= the campaign's {cl['host']}")
+            line.update(host_replay_wall_s=[sa, sb], replays_equal=True)
+        log(label + " " + json.dumps(line))
+        verdicts[h] = cl["outcome"]
+    return verdicts
+
+
 def hunt_campaign_phase(witness_hash: str, smi: str):
     """``hunt run`` on the card with host replay on: the nogap witness
     captured, shrunk and replayed to its hash, every witness classified
@@ -1982,11 +2128,9 @@ def hunt_campaign_phase(witness_hash: str, smi: str):
     capture's host outcome equal to the same run captured on the CPU."""
     import shutil
     from paxi_tpu_torch import cli
-    from paxi_tpu_torch import random as tr
     from paxi_tpu_torch import trace as T
     from paxi_tpu_torch.hunt import Corpus
     from paxi_tpu_torch.protocols import sim_protocol
-    from paxi_tpu_torch.sim import make_run
 
     shutil.rmtree(HUNT_DIR, ignore_errors=True)
     argv = ["hunt", "run", "--dir", HUNT_DIR, "--traces-dir", WITNESS_DIR] \
@@ -2008,25 +2152,8 @@ def hunt_campaign_phase(witness_hash: str, smi: str):
     if not (launches["wheel_deliver"] > 0 and launches["wheel_insert"] > 0):
         fail(f"hunt run launched no exchange kernel: {launches}")
 
-    cases = hunt_cases.hunt_cases(["switchpaxos", "switchpaxos_nogap"],
-                                  quick=True)
-
-    def case_of(run):
-        name, cfg, scheds, groups, steps, pkey = \
-            cases[run["protocol"]][int(run["run"].split(":")[0])]
-        fz = next(f for f in scheds
-                  if hunt_cases.sched_name(f) == run["schedule"])
-        return name, cfg, fz, groups, steps, pkey
-
-    for run in state["runs"]:
-        name, cfg, fz, groups, steps, pkey = case_of(run)
-        _, metrics, viols = make_run(sim_protocol(name), cfg, fz,
-                                     device="cpu")(
-            tr.PRNGKey(run["seed"]), groups, steps)
-        cpu = (int(viols), int(metrics[pkey]))
-        if cpu != (run["violations"], run["progress"]):
-            fail(f"hunt run {run['protocol']} {run['run']}: card "
-                 f"{(run['violations'], run['progress'])}, CPU {cpu}")
+    case_of = campaign_runs_on_cpu(state,
+                                   ["switchpaxos", "switchpaxos_nogap"])
 
     corpus = Corpus(HUNT_DIR + "/corpus")
     caught = [r.get("witness") for r in state["runs"]
@@ -2061,26 +2188,7 @@ def hunt_campaign_phase(witness_hash: str, smi: str):
         "outcome": w["classification"]["outcome"],
         "replay_state_hash": r.state_hash, "replay_equal": True}))
 
-    # every witness's verdict, and its host outcome read twice from its
-    # file: equal to each other (spans included) and to the campaign's
-    for h, wit in sorted(state["witnesses"].items()):
-        cl = wit["classification"]
-        line = {"witness": h, "protocol": wit["protocol"],
-                "outcome": cl["outcome"], "reason": cl["reason"],
-                "host": cl.get("host"), "host_replay_wall_s": None}
-        if cl["outcome"] not in ("reproduced", "diverged", "unmappable"):
-            fail(f"hunt run: witness {h[:16]} unclassified: {cl}")
-        if cl.get("host") is not None:
-            trace = corpus.load(wit.get("minimal") or h)
-            (a, sa), (b, sb) = host_replay(trace), host_replay(trace)
-            if a.to_json() != b.to_json() or a.spans != b.spans:
-                fail(f"hunt witness {h[:16]}: two host replays differ: "
-                     f"{a.to_json()} / {b.to_json()}")
-            if a.to_json() != cl["host"]:
-                fail(f"hunt witness {h[:16]}: host replay {a.to_json()} "
-                     f"!= the campaign's {cl['host']}")
-            line.update(host_replay_wall_s=[sa, sb], replays_equal=True)
-        log("hunt_witness_host " + json.dumps(line))
+    witness_host_lines(state, corpus, "hunt_witness_host")
 
     # the nogap run captured again on the CPU: the same schedule, the
     # same host outcome and span timeline as the card's capture
@@ -2470,6 +2578,129 @@ def sync_audit_phase(smi: str):
     if seconds > AUDIT_SECONDS:
         fail(f"sync audit took {seconds:.1f} s, over {AUDIT_SECONDS} s")
     return per_step, launches
+
+
+# ---- phase 13: the host twins ------------------------------------------------
+
+def twin_campaign_phase(smi: str):
+    """``hunt run`` over the seeded twins on the card, host replay on:
+    every witness classified (none unclassified), each control with a
+    ``reproduced`` witness, each run's violations and
+    progress equal to the CPU's, each witness's host outcome read twice
+    more from its file.  Returns the campaign's launch counts."""
+    import shutil
+    from paxi_tpu_torch import cli
+    from paxi_tpu_torch.hunt import Corpus
+
+    shutil.rmtree(TWIN_HUNT_DIR, ignore_errors=True)
+    argv = ["hunt", "run", "--dir", TWIN_HUNT_DIR, "--traces-dir",
+            TWIN_HUNT_DIR + "/no_seeds"] + TWIN_HUNT_ARGV
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = captured(cli.main, argv)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(TWIN_HUNT_DIR + "/state.json") as f:
+        state = json.load(f)
+    with open(TWIN_HUNT_DIR + "/HUNT_REPORT.json") as f:
+        totals = json.load(f)["summary"]["totals"]
+    log("twin_campaign " + json.dumps({
+        "argv": argv, "rc": rc, "totals": totals, "runs": state["runs"],
+        "wall_s": wall_s, "kernels": launches, "device": smi}))
+    if rc != 0 or totals["unclassified"] != 0:
+        fail(f"hunt run (twins): rc {rc}, totals {totals}\n{out[-2000:]}")
+    if not (launches["wheel_deliver"] > 0 and launches["wheel_insert"] > 0):
+        fail(f"hunt run (twins) launched no exchange kernel: {launches}")
+    t0 = time.perf_counter()
+    campaign_runs_on_cpu(state, TWIN_HUNT_PROTOCOLS)
+    cpu_s = time.perf_counter() - t0
+    verdicts = witness_host_lines(state, Corpus(TWIN_HUNT_DIR + "/corpus"),
+                                  "twin_witness_host")
+    for protocol in TWIN_HUNT_PROTOCOLS:
+        got = [verdicts[h] for h, w in state["witnesses"].items()
+               if w["protocol"] == protocol]
+        if "reproduced" not in got:
+            fail(f"hunt run (twins): the {protocol} control's witnesses "
+                 f"classify {got}, none reproduced")
+    log("twin_campaign_cpu " + json.dumps({
+        "runs": len(state["runs"]), "equal": True, "cpu_s": cpu_s}))
+    return launches
+
+
+def twin_witness_phase():
+    """Phase 5's wpaxos_thinq1 and phase 8's wankeeper_nofloor witnesses
+    (100k captures, saved) classified with host replay on, each twice
+    with equal verdicts; a verdict that carries a host outcome is replayed
+    twice more, equal to it and to each other (spans included)."""
+    from paxi_tpu_torch import trace as T
+    from paxi_tpu_torch.hunt import classify_witness
+
+    for path in (THINQ1_WITNESS, NOFLOOR_WITNESS):
+        trace = T.load(path)
+        t0 = time.perf_counter()
+        a, b = classify_witness(trace), classify_witness(trace)
+        classify_s = (time.perf_counter() - t0) / 2
+        if a.to_json() != b.to_json():
+            fail(f"{trace.protocol} witness: two verdicts differ: "
+                 f"{a.to_json()} / {b.to_json()}")
+        line = {"protocol": trace.protocol,
+                "schedule_hash": trace.meta["schedule_hash"],
+                "n_groups": trace.meta["n_groups"],
+                "group": trace.meta["group"],
+                "group_violations": trace.meta["group_violations"],
+                "outcome": a.outcome, "reason": a.reason, "host": a.host,
+                "coverage": a.coverage, "classify_wall_s": classify_s,
+                "host_replay_wall_s": None}
+        if a.host is not None:
+            (x, sx), (y, sy) = host_replay(trace), host_replay(trace)
+            if x.to_json() != y.to_json() or x.spans != y.spans \
+                    or x.to_json() != a.host:
+                fail(f"{trace.protocol} witness: host replays differ: "
+                     f"{x.to_json()} / {y.to_json()} / {a.host}")
+            line.update(host_replay_wall_s=[sx, sy], replays_equal=True)
+        log("twin_witness " + json.dumps(line))
+
+
+def twin_scenario_phase():
+    """``scenario run -host`` for each twin of ``SCENARIO_TWIN_LINES`` in
+    one interpreter: each (exit code, line) the JAX package's."""
+    lines = list(SCENARIO_TWIN_LINES.items())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SCENARIO_LINES_CODE,
+         json.dumps([argv for _, (argv, _) in lines])],
+        capture_output=True, text=True, timeout=300,
+        cwd=str(Path(__file__).resolve().parent))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"scenario run -host (twins): {proc.stderr[-2000:]}")
+    outs = [json.loads(x) for x in proc.stdout.splitlines()
+            if x.startswith("{")]
+    for (name, (argv, want)), got in zip(lines, outs):
+        got = (got["rc"], got["line"])
+        log("twin_scenario_host " + json.dumps({
+            "argv": argv, "rc": got[0], "line": got[1],
+            "equal_to_reference": got == want}))
+        if got != want:
+            fail(f"scenario run -host {name}: {got} != {want}")
+    if len(outs) != len(lines):
+        fail(f"scenario run -host (twins): {len(outs)} lines of "
+             f"{len(lines)}")
+    log("twin_scenario_host_wall_s " + json.dumps({"wall_s": wall_s}))
+
+
+def host_twins_phase(smi: str):
+    """Phase 13: the micro-campaign, the two 100k witnesses, the scenario
+    lines.  Returns the campaign's launch counts."""
+    t0 = time.perf_counter()
+    launches = twin_campaign_phase(smi)
+    twin_witness_phase()
+    twin_scenario_phase()
+    seconds = time.perf_counter() - t0
+    log("host_twins_phase " + json.dumps({"seconds": seconds}))
+    if seconds > TWIN_SECONDS:
+        fail(f"the host twins took {seconds:.1f} s, over {TWIN_SECONDS} s")
+    return launches
 
 
 # ---- phase 6: four ranks on the one card ---------------------------------
@@ -2895,13 +3126,20 @@ def main() -> int:
     t12 = time.perf_counter()
     _, audit_launches = sync_audit_phase(smi)
     t12 = time.perf_counter() - t12
+
+    # 13. the host twins: the seeded twins' micro-campaign on the card, the
+    # 100k witnesses of phases 5 and 8 on their twins, scenario run -host
+    t13 = time.perf_counter()
+    driver_launches["hunt_twins_campaign"] = host_twins_phase(smi)
+    t13 = time.perf_counter() - t13
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
         "slice11_bench_and_sw_twins": t11, "sync_audit": t12,
+        "host_twins": t13,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 13. the kernel summary: launches from the epaxos main path (the one
+    # 14. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]

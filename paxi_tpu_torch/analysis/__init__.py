@@ -9,9 +9,8 @@ Rule families:
   from host data every step (PXK107), and the JAX package's determinism
   codes (PXK101-103, 105, 106);
 - ``trace-map``             (tracemap.py,  PXT30x) — registry x
-  ``mailbox_spec`` x each ported host twin's ``TRACE_MSG_MAP`` (and
-  its message classes, PXT304), else ``trace/host.py``'s
-  ``TRACE_MSG_MAPS`` copy;
+  ``mailbox_spec`` x each host twin's ``TRACE_MSG_MAP`` and its message
+  classes;
 - ``quorum-safety``         (quorum.py,    PXQ50x) — the sim half
   (PXQ502-505) over ``SimConfig``'s derived sizes and the zone and
   row/column grids;
@@ -38,9 +37,9 @@ Left out, with the reason:
   (replay determinism), PXE (epoch fence), PXR (lease flow) and PXV (wire
   records) read ``host/``, ``shard/``, ``obs/``, ``switchnet/switch.py``
   and the wire records — the asyncio host runtime and the serving
-  stack.  The port has the replay half of that runtime so far (four
-  host twins, no serving, no ``shard/``); the host families are queued
-  behind the remaining twins and the serving stack.
+  stack.  The port has the replay half of that runtime so far (every
+  host twin, no serving, no ``shard/``); the host families are queued
+  behind the serving stack.
 - PXS (sim/host state parity) pairs each kernel with its host module;
   the port's state is held to the JAX package's by the parity tests
   (``tests/test_torch_*.py``) instead.

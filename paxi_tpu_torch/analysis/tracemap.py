@@ -1,27 +1,26 @@
 """Trace-map coverage rule family (PXT3xx), sim half, over the port.
 
 The hunt projects a sim trace's per-mailbox fault schedule onto the host
-runtime's message classes through the protocol's trace map (sim mailbox
-name -> host message class).  A ported host twin (the registry's
-``_HOST_MODULES``) holds its own ``TRACE_MSG_MAP``, as in the JAX
-package; the maps of the twins still to be ported are data in
-``trace/host.py``'s ``TRACE_MSG_MAPS`` literal, keyed by host-registry
-name.  Every *unmapped* mailbox degrades to a coarse time-window drop in
-the projection; a *missing* map disables the projection entirely.
+runtime's message classes through the protocol's ``TRACE_MSG_MAP`` (sim
+mailbox name -> host message class), which each host twin of the
+registry's ``_HOST_MODULES`` holds, as in the JAX package.  Every
+*unmapped* mailbox degrades to a coarse time-window drop in the
+projection; a *missing* map disables the projection entirely.
 
 This rule closes the loop statically, without importing anything:
 
 - the protocol registry (``protocols/__init__.py``) is parsed for its
-  ``_SIM_MODULES`` dict literal, and each protocol resolves to its map
-  with the same variant-to-base rule as ``trace/host.py:host_algorithm``
-  (a protocol without a map of its own projects through its sim
-  module's package name — e.g. ``paxos_pg`` and ``wankeeper_nofloor``);
+  ``_SIM_MODULES`` and ``_HOST_MODULES`` dict literals, and each
+  protocol resolves to its map with the same variant-to-base rule as
+  ``trace/host.py:host_algorithm`` (a protocol without a twin of its
+  own projects through its sim module's package name — e.g.
+  ``paxos_pg`` and ``wankeeper_nofloor``);
 - the sim module's ``mailbox_spec`` supplies the mailbox names (dict
   literal keys — constant strings even where the field tuples are
   computed);
-- each ported twin's ``TRACE_MSG_MAP`` (a twin with a ``TWIN_OF =
-  "pkg.base_host"`` marker is read as its base), else the
-  ``TRACE_MSG_MAPS`` literal, supplies each map.
+- each twin's ``TRACE_MSG_MAP`` (a twin with a ``TWIN_OF =
+  "pkg.base_host"`` marker is read as its base) supplies each map, and
+  its ``@register_message`` classes the names a map may use.
 
 Checks:
 
@@ -32,11 +31,8 @@ Checks:
   back to coarse windows for that message type)
 - **PXT303** a map key that names no sim mailbox (stale after a kernel
   refactor — it will never match a recorded fault)
-
-- **PXT304** a ported twin's map value naming no ``@register_message``
-  class of the twin's module (the fabric matches type names, so a typo
-  never fires).  The literal's maps are copies of twins not yet ported,
-  which the hunt tests hold equal to the JAX package's.
+- **PXT304** a map value naming no ``@register_message`` class of the
+  twin's module (the fabric matches type names, so a typo never fires)
 """
 
 from __future__ import annotations
@@ -51,16 +47,16 @@ from paxi_tpu_torch.analysis.model import Violation
 RULE = "trace-map"
 
 REGISTRY = "paxi_tpu_torch/protocols/__init__.py"
-MAPS = "paxi_tpu_torch/trace/host.py"
-MAPS_NAME = "TRACE_MSG_MAPS"
+MAP_NAME = "TRACE_MSG_MAP"
 
-TARGETS = (REGISTRY, MAPS, "paxi_tpu_torch/protocols/*/sim*.py",
+TARGETS = (REGISTRY, "paxi_tpu_torch/protocols/*/sim*.py",
            "paxi_tpu_torch/protocols/*/host.py",
            "paxi_tpu_torch/protocols/*/nogap.py",
+           "paxi_tpu_torch/protocols/*/noread.py",
            "paxi_tpu_torch/trace/demo.py",
            "paxi_tpu_torch/trace/demo_host.py",
-           "paxi_tpu_torch/scenarios/demo.py")
-TWIN_MAP_NAME = "TRACE_MSG_MAP"
+           "paxi_tpu_torch/scenarios/demo.py",
+           "paxi_tpu_torch/scenarios/demo_host.py")
 
 
 def _module_to_path(module: str, root: Path) -> Path:
@@ -98,12 +94,13 @@ def _twin_of(root: Path, module: str) -> Optional[str]:
 
 
 def twin_modules(root: Path) -> Dict[str, Path]:
-    """protocol -> the file holding its ported host twin's map (its
-    ``TWIN_OF`` base where it has one); {} without ``_HOST_MODULES``."""
+    """protocol -> the file holding its host twin's map (its ``TWIN_OF``
+    base where it has one)."""
     tree, _ = astutil.parse_file(root / REGISTRY)
     hosts = astutil.parse_module_dict(tree, "_HOST_MODULES")
     if hosts is None:
-        return {}
+        raise ValueError(f"{REGISTRY}: _HOST_MODULES dict literal not "
+                         "found — registry layout changed?")
     out = {}
     for k, v, _, _ in astutil.str_dict_items(hosts):
         if v is not None:
@@ -112,23 +109,14 @@ def twin_modules(root: Path) -> Dict[str, Path]:
 
 
 def _maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int, Path]]:
-    """protocol -> (its map, the line of its map, the file holding it)."""
-    tree, _ = astutil.parse_file(root / MAPS)
-    d = astutil.parse_module_dict(tree, MAPS_NAME)
-    if d is None:
-        raise ValueError(f"{MAPS}: {MAPS_NAME} dict literal not found")
+    """protocol -> (its map, the line of its map, the twin file holding
+    it), for every twin that exports a map."""
     out: Dict[str, Tuple[Dict[str, str], int, Path]] = {}
-    for k, v in zip(d.keys, d.values):
-        if isinstance(k, ast.Constant) and isinstance(k.value, str) \
-                and isinstance(v, ast.Dict):
-            out[k.value] = ({key: val or "" for key, val, _, _
-                             in astutil.str_dict_items(v)}, k.lineno,
-                            root / MAPS)
     for protocol, path in twin_modules(root).items():
         if not path.exists():
             continue
         tm = astutil.parse_module_dict(astutil.parse_file(path)[0],
-                                       TWIN_MAP_NAME)
+                                       MAP_NAME)
         if tm is not None:
             out[protocol] = ({key: val or "" for key, val, _, _
                               in astutil.str_dict_items(tm)}, tm.lineno,
@@ -137,8 +125,7 @@ def _maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int, Path]]:
 
 
 def trace_maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int]]:
-    """protocol -> (its map, the line of the map in the file holding
-    it: the ported twin's module, else ``TRACE_MSG_MAPS``)."""
+    """protocol -> (its map, the line of the map in its twin's file)."""
     return {k: (m, line) for k, (m, line, _) in _maps(root).items()}
 
 
@@ -179,7 +166,7 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
              ) -> List[Tuple[str, str, Path, int]]:
     """(protocol, sim module, sim path, registry line) for every kernel
     this rule checks.  ``restrict`` (files or directories) keeps a
-    protocol when its sim module, the registry or the maps file falls
+    protocol when its sim module, the registry or a twin's file falls
     inside."""
     dirs = [p.resolve() for p in restrict or [] if p.is_dir()]
     files = {p.resolve() for p in restrict or [] if p.is_file()}
@@ -189,7 +176,7 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
         return rp in files or any(str(rp).startswith(str(d) + "/")
                                   for d in dirs)
 
-    shared = (inside(root / REGISTRY) or inside(root / MAPS)
+    shared = (inside(root / REGISTRY)
               or any(inside(p) for p in twin_modules(root).values()))
     out = []
     for protocol, sim_mod, line in registry(root):
@@ -205,7 +192,7 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
 def check(root: Path,
           files: Optional[Sequence[Path]] = None) -> List[Violation]:
     """``files``, when given, restricts the check to protocols whose sim
-    module (or the registry, or the maps file) is in the set."""
+    module (or the registry, or a twin's file) is in the set."""
     sources = _maps(root)
     maps = {k: (m, line) for k, (m, line, _) in sources.items()}
     out: List[Violation] = []
@@ -220,10 +207,10 @@ def check(root: Path,
                 rule=RULE, code="PXT301", path=REGISTRY, line=reg_line,
                 col=0,
                 message=f"protocol `{protocol}` has a sim kernel "
-                        f"({astutil.rel(sim_path, root)}) but no "
-                        f"{MAPS_NAME} entry (its own or its base's) — "
-                        "its witnesses cannot project onto host fault "
-                        "directives"))
+                        f"({astutil.rel(sim_path, root)}) but no host "
+                        f"twin with a {MAP_NAME} (its own or its "
+                        "base's) — its witnesses cannot project onto "
+                        "host fault directives"))
             continue
         key = (base, sim_path)
         if key in seen:
@@ -239,25 +226,23 @@ def check(root: Path,
                     col=0,
                     message=f"sim mailbox `{name}` of protocol "
                             f"`{protocol}` is not covered by "
-                            f"{MAPS_NAME}[{base!r}] — its recorded "
-                            "faults degrade to coarse drop windows"))
+                            f"{MAP_NAME} — its recorded faults degrade "
+                            "to coarse drop windows"))
         for k in mapping:
             if k not in box_names:
                 out.append(Violation(
                     rule=RULE, code="PXT303", path=map_path, line=line,
                     col=0,
-                    message=f"{MAPS_NAME}[{base!r}] key `{k}` names no "
-                            f"sim mailbox of protocol `{protocol}` "
-                            "(stale after a kernel refactor?)"))
-        if map_file == root / MAPS:
-            continue            # a copy: the twin's classes are not here
+                    message=f"{MAP_NAME} key `{k}` names no sim mailbox "
+                            f"of protocol `{protocol}` (stale after a "
+                            "kernel refactor?)"))
         classes = host_message_classes(map_file)
         for k, val in mapping.items():
             if val not in classes:
                 out.append(Violation(
                     rule=RULE, code="PXT304", path=map_path, line=line,
                     col=0,
-                    message=f"{TWIN_MAP_NAME} value `{val}` (key `{k}`) "
+                    message=f"{MAP_NAME} value `{val}` (key `{k}`) "
                             "names no @register_message class in the "
                             "host module — the fabric matches type "
                             "names, a typo never fires"))

@@ -11,7 +11,7 @@ Every subcommand that runs the sim takes ``-device``/``--device``: the
 card by default, ``cpu`` to run on the CPU.  The host runtime (``trace
 host``'s projection, ``scenario run -host`` and the hunt's host replay)
 is asyncio Python on the CPU, as in the JAX package; it drives the host
-twins ported so far (``protocols._HOST_MODULES``) and refuses the others.
+twin of every protocol (``protocols._HOST_MODULES``).
 ``lint`` is the port's paxi-lint (``paxi_tpu_torch/analysis``): pure AST,
 it needs no card.  Serving (``server``, ``client``, the metrics scrape)
 and ``spans`` are not ported yet.
@@ -151,10 +151,10 @@ def cmd_trace(args) -> int:
             # protocol's TRACE_MSG_MAP: which protocols could replay the
             # schedule exactly, and what each one loses
             from paxi_tpu_torch.hunt.classify import coverage_of
-            from paxi_tpu_torch.trace.host import (TRACE_MSG_MAPS,
-                                                   trace_msg_map)
+            from paxi_tpu_torch.protocols import _HOST_MODULES
+            from paxi_tpu_torch.trace.host import trace_msg_map
             out = {}
-            for proto in sorted(TRACE_MSG_MAPS):
+            for proto in sorted(_HOST_MODULES):
                 m = trace_msg_map(proto)
                 if not m:
                     continue
@@ -255,13 +255,7 @@ def cmd_scenario(args) -> int:
         import asyncio
 
         from paxi_tpu_torch.host.simulation import chan_config
-        from paxi_tpu_torch.hunt.classify import (replay_schedule,
-                                                  require_host_twin)
-        try:
-            require_host_twin(args.algorithm)
-        except ValueError as e:
-            print(f"scenario: {e}", file=sys.stderr)
-            return 2
+        from paxi_tpu_torch.hunt.classify import replay_schedule
         hcfg = chan_config(args.replicas, zones=args.zones,
                            tag="scenario")
         sched = scn.seq_schedule_of(scenario, hcfg.ids, args.steps)

@@ -1,5 +1,5 @@
 """Core types of the host runtime (the port's copy of the JAX package's
-``core/``; ``policy.py`` waits for the wpaxos host twin).
+``core/``; ``policy.py`` is the wpaxos twin's object-stealing policy).
 
 Reference (paxi): id.go, config.go, msg.go, db.go, quorum.go.
 """

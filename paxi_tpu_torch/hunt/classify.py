@@ -18,9 +18,7 @@ witness's schedule projected onto the virtual-clock fabric
 (``trace/host.seq_schedule``) and replayed against the protocol's asyncio
 host twin (``protocols._HOST_MODULES``) on the CPU, as in the JAX
 package, so two replays of one file give the same outcome and the same
-span timeline.  A protocol whose host twin is still queued is refused
-with a ``ValueError`` naming ``--no-host``, which classifies a mappable
-witness as a coverage gap instead.
+span timeline.
 """
 
 from __future__ import annotations
@@ -38,20 +36,6 @@ from paxi_tpu_torch.trace.host import (host_algorithm, local_ids,
                                        seq_schedule, trace_msg_map)
 
 OUTCOMES = ("reproduced", "diverged", "unmappable")
-
-
-def require_host_twin(protocol: str) -> None:
-    """Raise ``ValueError`` when ``protocol`` replays against a host twin
-    the port has not ported yet (its witnesses still classify with host
-    replay off)."""
-    from paxi_tpu_torch.protocols import _HOST_MODULES
-    base = host_algorithm(protocol) or protocol
-    if base not in _HOST_MODULES:
-        raise ValueError(
-            f"protocol {protocol!r}: its host twin ({base!r}) is queued "
-            "for a later slice of the port (ported: "
-            f"{', '.join(sorted(_HOST_MODULES))}); classify with host "
-            "replay off (--no-host)")
 
 
 @dataclass
@@ -202,7 +186,6 @@ async def replay_witness(trace: Trace, *, tail_steps: Optional[int] = None,
     algorithm = host_algorithm(trace.protocol)
     if algorithm is None:
         raise ValueError(f"{trace.protocol!r} has no host runtime")
-    require_host_twin(trace.protocol)
     scfg = trace.sim_config()
     from paxi_tpu_torch.host.simulation import chan_config
     cfg = chan_config(scfg.n_replicas, zones=scfg.n_zones, tag="hunt")
@@ -233,7 +216,6 @@ async def replay_schedule(algorithm: str, scfg, sched, *, cfg=None,
     from paxi_tpu_torch.obs import TRACE_PROP, SpanCollector, TraceCtx, merge
     from paxi_tpu_torch.protocols import _HOST_MODULES
 
-    require_host_twin(algorithm)
     if cfg is None:
         cfg = chan_config(scfg.n_replicas, zones=scfg.n_zones,
                           tag="hunt")
@@ -343,10 +325,7 @@ async def replay_schedule(algorithm: str, scfg, sched, *, cfg=None,
 def classify_witness(trace: Trace, *, host_replay: bool = True,
                      **replay_kw) -> Classification:
     """The engine's one-stop path: coverage -> (maybe) replay ->
-    verdict.  Synchronous wrapper (each replay gets a fresh loop).  A
-    mappable witness of a protocol whose host twin is queued raises
-    ``ValueError`` (``require_host_twin``) unless ``host_replay`` is
-    off."""
+    verdict.  Synchronous wrapper (each replay gets a fresh loop)."""
     cov = coverage_of(trace)
     if cov["unmapped_mailboxes"] or cov["dups"] > 0 or not host_replay:
         host = None

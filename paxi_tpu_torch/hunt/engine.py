@@ -24,9 +24,8 @@ package's formats, equal to its campaign's apart from ``wall_s``.  Every
 completed (case, schedule, seed) run is recorded before the next starts,
 so an interrupted campaign resumes where it left off, and a raised
 budget extends the seed stream.  The runs go on
-``device``: the card unless ``"cpu"`` is asked for.  With host replay
-on (the default), every campaign protocol must replay against a ported
-host twin: another one is refused before any run, naming ``--no-host``.
+``device``: the card unless ``"cpu"`` is asked for; the host replay
+(on by default) runs every protocol's asyncio host twin on the CPU.
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from paxi_tpu_torch.hunt import cases as hc
-from paxi_tpu_torch.hunt.classify import classify_witness, require_host_twin
+from paxi_tpu_torch.hunt.classify import classify_witness
 from paxi_tpu_torch.hunt.corpus import Corpus
 
 _STATE_VERSION = 1
@@ -67,9 +66,6 @@ class Campaign:
             if missing:
                 raise KeyError(f"no hunt cases for protocols {missing}; "
                                f"have {sorted(set(c[0] for c in hc.CASES + hc.DEMO_CASES))}")
-        if host_replay:
-            for protocol in sorted(self.cases):
-                require_host_twin(protocol)
         self.root.mkdir(parents=True, exist_ok=True)
         self.corpus = Corpus(self.root / "corpus")
         self.budget = int(budget)

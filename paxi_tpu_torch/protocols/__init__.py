@@ -14,10 +14,13 @@ of the trace and scenario engines, ``fragile_counter`` and
 package's registry resolves here.
 
 ``_HOST_MODULES`` is the asyncio host runtime's registry (``host_replica``
-resolves a name to its replica factory): the host twins ported so far,
-which the hunt's host replay and ``scenario run -host`` drive.  The JAX
-package's other twins are queued (``trace/host.py`` keeps a copy of their
-``TRACE_MSG_MAP``s, so their witnesses still project).
+resolves a name to its replica factory), the JAX package's sixteen names:
+a host twin of every protocol, and of the seeded bugs that share their
+bug with the host (``bpaxos_noread``, ``switchpaxos_nogap``) and the
+demo kernels, which the hunt's host replay and ``scenario run -host``
+drive.  A sim name without a twin of its own (``paxos_pg``,
+``wpaxos_thinq1``, ``wankeeper_nofloor``) replays against its base
+protocol's (``trace/host.host_algorithm``).
 """
 
 from __future__ import annotations
@@ -56,10 +59,24 @@ _HOST_MODULES = {
     # end-to-end reproduction fixture
     "fragile_counter": "paxi_tpu_torch.trace.demo_host",
     "paxos": "paxi_tpu_torch.protocols.paxos.host",
+    "abd": "paxi_tpu_torch.protocols.abd.host",
+    "chain": "paxi_tpu_torch.protocols.chain.host",
+    "wpaxos": "paxi_tpu_torch.protocols.wpaxos.host",
+    "epaxos": "paxi_tpu_torch.protocols.epaxos.host",
+    "kpaxos": "paxi_tpu_torch.protocols.kpaxos.host",
+    "dynamo": "paxi_tpu_torch.protocols.dynamo.host",
+    "sdpaxos": "paxi_tpu_torch.protocols.sdpaxos.host",
+    "wankeeper": "paxi_tpu_torch.protocols.wankeeper.host",
+    "blockchain": "paxi_tpu_torch.protocols.blockchain.host",
+    "bpaxos": "paxi_tpu_torch.protocols.bpaxos.host",
+    # seeded twins with a matching host twin: takeover without the
+    # column read, and stamp gaps NOOP-committed; their witnesses are
+    # the hunt's reproduced controls for real protocols
+    "bpaxos_noread": "paxi_tpu_torch.protocols.bpaxos.noread",
     "switchpaxos": "paxi_tpu_torch.protocols.switchpaxos.host",
-    # the seeded twin with a matching host twin: its drop witnesses are
-    # the in-fabric tier's reproduced control
     "switchpaxos_nogap": "paxi_tpu_torch.protocols.switchpaxos.nogap",
+    # the host twin of the scenario engine's churn-sensitive demo kernel
+    "relay_churn": "paxi_tpu_torch.scenarios.demo_host",
 }
 
 

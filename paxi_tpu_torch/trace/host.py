@@ -16,9 +16,8 @@ sockets' faults, so a captured schedule projects back:
   ``DropWin`` windows scaled by ``step_s``), which ``trace host`` prints
   and ``apply_immediate`` installs.
 
-``TRACE_MSG_MAPS`` holds every host-registry protocol's map: the ported
-host twins' own ``TRACE_MSG_MAP`` (``protocols._HOST_MODULES``), and a
-copy of the map of each twin still to be ported.
+Each protocol's map (sim mailbox name -> host message class) is its host
+twin's own ``TRACE_MSG_MAP`` (``protocols._HOST_MODULES``).
 """
 
 from __future__ import annotations
@@ -33,37 +32,6 @@ import numpy as np
 from paxi_tpu_torch.core.config import local_config
 from paxi_tpu_torch.core.ident import ID
 from paxi_tpu_torch.trace.format import Trace
-
-# the host runtime's protocol registry (its keys) and each host module's
-# TRACE_MSG_MAP: sim mailbox name -> host message class.  The literal holds
-# the twins still to be ported; the ported twins' maps join it below.
-TRACE_MSG_MAPS: Dict[str, Dict[str, str]] = {
-    "abd": {"query": "Query", "query_r": "QueryReply", "store": "Store",
-            "store_r": "StoreReply"},
-    "chain": {"ack": "Ack", "prop": "Propagate", "rep": "Propagate"},
-    "wpaxos": {"p1a": "WP1a", "p1b": "WP1b", "p2a": "WP2a", "p2b": "WP2b",
-               "p3": "WP3"},
-    "epaxos": {"acc": "Accept", "accr": "AcceptReply", "cmt": "Commit",
-               "pa": "PreAccept", "par": "PreAcceptReply",
-               "prep": "Prepare", "prepr": "PrepareReply",
-               "racc": "Accept", "raccr": "AcceptReply",
-               "rcmt": "Commit"},
-    "kpaxos": {"p2a": "KP2a", "p2b": "KP2b", "p3": "KP3"},
-    "dynamo": {"gossip": "RWrite"},
-    "sdpaxos": {"ca": "CAccept", "cack": "CAck", "cneed": "CFetch",
-                "cr": "CAccept", "oreq": "OReq", "p1a": "Seq1a",
-                "p1b": "Seq1b", "p2a": "OAccept", "p2b": "OAck",
-                "p3": "OCommit"},
-    "wankeeper": {"p1a": "Root1a", "p1b": "Root1b", "p2a": "Grant",
-                  "p3": "Grant", "rel": "Rel", "treq": "TReq",
-                  "zack": "ZAck", "zrep": "ZWrite"},
-    "blockchain": {"head": "BlockMsg"},
-    "bpaxos": {"p1a": "BP1a", "p1b": "BP1b", "p2a": "BP2a", "p2b": "BP2b",
-               "p3": "BP3"},
-    "bpaxos_noread": {"p1a": "BP1a", "p1b": "BP1b", "p2a": "BP2a",
-                      "p2b": "BP2b", "p3": "BP3"},
-    "relay_churn": {"seq": "Seq"},
-}
 
 
 # ---- directive vocabulary ----------------------------------------------
@@ -232,16 +200,6 @@ class SeqSchedule:
         }
 
 
-def _twin_maps() -> Dict[str, Dict[str, str]]:
-    """Each ported host twin's own ``TRACE_MSG_MAP``."""
-    from paxi_tpu_torch.protocols import _HOST_MODULES
-    return {name: dict(importlib.import_module(module).TRACE_MSG_MAP)
-            for name, module in _HOST_MODULES.items()}
-
-
-TRACE_MSG_MAPS.update(_twin_maps())
-
-
 def id_order(i) -> Tuple[int, int]:
     """A ``"zone.node"`` replica id's numeric (zone, node) sort key (a
     bare node number is zone 1): ``core.ident.ID``'s order, under which
@@ -261,20 +219,24 @@ def host_algorithm(protocol: str) -> Optional[str]:
     """The host-registry name a sim protocol replays against, or None for
     sim-only protocols.  A variant registered on its base protocol's sim
     module (``wankeeper_nofloor``, ``paxos_pg``) maps to that base."""
-    from paxi_tpu_torch.protocols import _SIM_MODULES
+    from paxi_tpu_torch.protocols import _HOST_MODULES, _SIM_MODULES
     base = protocol
-    if base not in TRACE_MSG_MAPS:
+    if base not in _HOST_MODULES:
         sim_mod = _SIM_MODULES.get(protocol, "").partition(":")[0]
         parts = sim_mod.rsplit(".", 2)
         base = parts[-2] if len(parts) >= 2 else protocol
-    return base if base in TRACE_MSG_MAPS else None
+    return base if base in _HOST_MODULES else None
 
 
 def trace_msg_map(protocol: str) -> Dict[str, str]:
-    """The protocol's sim-mailbox-name -> host-message-class map ({} for
-    a sim-only protocol)."""
+    """The protocol's sim-mailbox-name -> host-message-class map (its host
+    twin's ``TRACE_MSG_MAP``; {} for a sim-only protocol)."""
+    from paxi_tpu_torch.protocols import _HOST_MODULES
     base = host_algorithm(protocol)
-    return {} if base is None else dict(TRACE_MSG_MAPS[base])
+    if base is None:
+        return {}
+    return dict(getattr(importlib.import_module(_HOST_MODULES[base]),
+                        "TRACE_MSG_MAP", {}))
 
 
 def _runs(ts: Sequence[int]) -> List[Tuple[int, int]]:

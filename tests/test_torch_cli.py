@@ -8,8 +8,7 @@ package's prints for the same arguments, compared after ``json.loads``
 ``trace info|replay|shrink`` on a JAX-captured trace, ``hunt
 run|status|report --no-host``, ``scenario run -host`` (the host runtime
 on the virtual-clock fabric), and ``profile`` (its keys; timings differ
-by nature).  Exit codes are the reference's, and the port refuses a host
-replay of a protocol whose host twin is queued with exit code 2.
+by nature).  Exit codes are the reference's.
 """
 
 import contextlib
@@ -102,10 +101,11 @@ def test_scenario_refusals():
     (j, _), (p, _) = both(["scenario", "run", "-host", "-algorithm", "paxos",
                            "-replicas", "3", "-zones", "3", "-p_drop", "0.1"])
     assert j == p == 2
-    # wpaxos's host twin is queued: refused, naming --no-host
-    rc, out = _run(pcli.main, ["scenario", "run", "-host", "-device",
-                               "cpu"])
-    assert rc == 2 and out == ""
+    # the defaults: wpaxos 3 x 3 under wan3z on its host twin, whose
+    # linearizability history counts anomalies in both packages
+    (line,) = assert_same(["scenario", "run", "-host"], rc=1)
+    assert line["algorithm"] == "wpaxos" and line["anomalies"] > 0
+    assert line["oracle_violations"] == 0 and line["ops_failed"] == 0
 
 
 def test_workload_run_and_list():
@@ -191,13 +191,18 @@ def test_hunt_run_status_report(tmp_path):
     for cmd in ("run", "status", "report"):
         assert lines["port", cmd] == lines["jax", cmd], cmd
     assert lines["port", "run"][0]["totals"]["witnesses"] == 1
-    # the port refuses a host replay whose host twin is queued; status
-    # and report need none
+    # host replay on for a seeded twin's base: wankeeper_nofloor with no
+    # run to do prints the JAX package's lines
     d = ["--dir", str(tmp_path / "port"), "--protocols", "fragile_counter",
          "--device", "cpu"]
-    assert _run(pcli.main, ["hunt", "run", "--dir", str(tmp_path / "port"),
-                            "--protocols", "wankeeper_nofloor",
-                            "--device", "cpu"])[0] == 2
+    nofloor = ["hunt", "run", "--protocols", "wankeeper_nofloor",
+               "--budget", "0", "--traces-dir", str(tmp_path / "none"),
+               "--quiet"]
+    from paxi_tpu import cli as jcli
+    j, jout = _run(jcli.main, nofloor + ["--dir", str(tmp_path / "jn")])
+    p, pout = _run(pcli.main, nofloor + ["--dir", str(tmp_path / "pn"),
+                                         "--device", "cpu"])
+    assert p == j == 0 and _json_lines(pout) == _json_lines(jout)
     rc, out = _run(pcli.main, ["hunt", "status", "--budget", "1"] + d)
     assert rc == 0 and json.loads(out) == lines["port", "status"][0]
     (j, _), (p, _) = both(["hunt", "status", "--dir", str(tmp_path / "x"),

@@ -88,11 +88,15 @@ def test_hunt_cases_equal_reference(protocols, quick):
 
 # ---- the host data the port copies ----------------------------------------
 def test_trace_msg_maps_equal_host_modules():
+    """Every map comes from its twin, as in the JAX package."""
     from paxi_tpu.protocols import _HOST_MODULES
-    assert sorted(phost.TRACE_MSG_MAPS) == sorted(_HOST_MODULES)
+    from paxi_tpu_torch.protocols import _HOST_MODULES as PHOST
+    assert sorted(PHOST) == sorted(_HOST_MODULES)
     for name, module in _HOST_MODULES.items():
         want = dict(importlib.import_module(module).TRACE_MSG_MAP)
-        assert phost.TRACE_MSG_MAPS[name] == want, name
+        assert phost.trace_msg_map(name) == want, name
+        assert phost.trace_msg_map(name) == dict(
+            importlib.import_module(PHOST[name]).TRACE_MSG_MAP), name
 
 
 def test_host_algorithm_and_maps_for_every_sim_name():
@@ -350,10 +354,16 @@ def test_campaign_classifies_a_seeded_backlog(jax_witness, tmp_path):
 def test_campaign_refusals(tmp_path):
     with pytest.raises(KeyError, match="no hunt cases"):
         P.Campaign(tmp_path / "a", protocols=["nope"], device="cpu")
-    # host replay on a protocol whose host twin is queued
-    with pytest.raises(ValueError, match="--no-host"):
-        P.Campaign(tmp_path / "b", protocols=["wankeeper_nofloor"],
-                   host_replay=True, device="cpu")
+    # host replay on: every protocol replays on a host twin, the default
+    # campaign's included, with the JAX package's case lists
+    from paxi_tpu.hunt import Campaign as JCampaign
+    for i, protocols in enumerate((["wankeeper_nofloor"], None)):
+        c = P.Campaign(tmp_path / f"b{i}", protocols=protocols,
+                       host_replay=True, device="cpu")
+        j = JCampaign(tmp_path / f"j{i}", protocols=protocols,
+                      host_replay=True)
+        assert c.host_replay and sorted(c.cases) == sorted(j.cases)
+    assert len(c.cases) == 13
     with pytest.raises(ValueError, match="v7"):
         (tmp_path / "c").mkdir()
         (tmp_path / "c" / "state.json").write_text('{"version": 7}')

@@ -16,9 +16,15 @@ must be equal.  The cases:
 - the ``switchpaxos_nogap`` witness at the hunt's 16 groups and the
   switchpaxos PART witness (32 groups x 140 steps, seed 1), each
   captured once by the port on the CPU;
-- ``scenario run -host`` and ``trace host`` (``--all``, ``--seq``)
-  printing ``python -m paxi_tpu``'s JSON;
-- the refusal of a host replay whose host twin is queued.
+- ``scenario run -host`` (paxos, switchpaxos, the demos, and the twins
+  of slice 14: epaxos, wpaxos and wankeeper under wan3z) and ``trace
+  host`` (``--all``, ``--seq``) printing ``python -m paxi_tpu``'s JSON;
+  the twins with wall-clock timers run on one logical clock in both
+  packages (``_torch_host_twins.step_clock``);
+- host replay of protocols whose twins came in slice 14 (a
+  ``wankeeper_nofloor`` fixture, ``hunt run`` over ``bpaxos_noread``),
+  equal to the JAX package's, and a sim-only name failing as
+  ``python -m paxi_tpu`` fails.
 """
 
 import asyncio
@@ -35,6 +41,8 @@ from paxi_tpu_torch import cli as pcli  # noqa: E402
 from paxi_tpu_torch import trace as ptr  # noqa: E402
 from paxi_tpu_torch.hunt import cases as hc  # noqa: E402
 from paxi_tpu_torch import hunt as P  # noqa: E402
+
+import _torch_host_twins as H  # noqa: E402
 
 
 def fixture_trace(pkg, faults=(), violations=1, n_steps=6, mailbox="seq",
@@ -261,6 +269,16 @@ def _both(argv):
     return _run(jcli.main, argv), _run(pcli.main, argv)
 
 
+def _both_clocked(argv, port_extra=()):
+    """``_both`` with each package's timed twins on a logical clock."""
+    from paxi_tpu import cli as jcli
+    with H.step_clock("paxi_tpu", []):
+        j = _run(jcli.main, argv)
+    with H.step_clock("paxi_tpu_torch", []):
+        p = _run(pcli.main, argv + list(port_extra))
+    return j, p
+
+
 @pytest.mark.parametrize("args", [
     ["-scenario", "churn", "-algorithm", "paxos", "-replicas", "3",
      "-zones", "1", "-steps", "50"],
@@ -268,9 +286,18 @@ def _both(argv):
      "-zones", "1", "-steps", "60", "-seed", "2"],
     ["-scenario", "wan3z", "-algorithm", "fragile_counter", "-replicas",
      "3", "-zones", "3", "-steps", "30"],
-], ids=["paxos_churn", "switchpaxos_seqchurn", "fragile_wan3z"])
+    ["-scenario", "wan3z", "-algorithm", "epaxos", "-replicas", "3",
+     "-zones", "3"],
+    ["-scenario", "wan3z", "-algorithm", "wpaxos", "-replicas", "9",
+     "-zones", "3"],
+    ["-scenario", "wan3z", "-algorithm", "wankeeper", "-replicas", "9",
+     "-zones", "3", "-steps", "24"],
+    ["-scenario", "churn", "-algorithm", "relay_churn", "-replicas", "3"],
+], ids=["paxos_churn", "switchpaxos_seqchurn", "fragile_wan3z",
+        "epaxos_wan3z", "wpaxos_wan3z", "wankeeper_wan3z", "relay_churn"])
 def test_scenario_run_host_equals_reference(args):
-    (jrc, jout), (prc, pout) = _both(["scenario", "run", "-host"] + args)
+    (jrc, jout), (prc, pout) = _both_clocked(
+        ["scenario", "run", "-host"] + args)
     assert prc == jrc and pout == jout and len(pout) == 1
     assert pout[0]["runtime"] == "host"
 
@@ -297,24 +324,61 @@ def test_trace_host_on_a_fixture(tmp_path):
         assert prc == jrc == 0 and pout == jout
 
 
-# ---- refusals ----------------------------------------------------------------
+# ---- the twins of slice 14 on the hunt's paths ------------------------------
 def test_host_replay_of_a_queued_twin_is_refused(tmp_path):
+    """No twin is queued any more: a ``wankeeper_nofloor`` witness replays
+    on the wankeeper twin, ``hunt run`` takes ``bpaxos_noread`` with host
+    replay on and ``scenario run -host`` takes epaxos, each giving the
+    JAX package's output (the refusals these replaced exited 2)."""
+    from paxi_tpu.hunt import classify_witness as jcw
+    from paxi_tpu.hunt import replay_witness as jrw
     t = fixture_trace("torch", faults=[("drop", 1, 0, 2)], mailbox="p1a",
                       protocol="wankeeper_nofloor")
-    with pytest.raises(ValueError, match="--no-host"):
-        P.classify_witness(t)
-    with pytest.raises(ValueError, match="wankeeper"):
-        asyncio.run(P.replay_witness(t))
-    # with host replay off it classifies as a coverage gap, as in JAX
-    from paxi_tpu.hunt import classify_witness as jcw
     jt = fixture_trace("jax", faults=[("drop", 1, 0, 2)], mailbox="p1a",
                        protocol="wankeeper_nofloor")
+    with H.step_clock("paxi_tpu_torch", []):
+        got = P.classify_witness(t)
+        a = asyncio.run(P.replay_witness(t))
+    with H.step_clock("paxi_tpu", []):
+        want = jcw(jt)
+        b = asyncio.run(jrw(jt))
+    assert got.to_json() == want.to_json() and got.host is not None
+    assert a.to_json() == b.to_json() and a.spans == b.spans
+    assert a.ops_ok > 0 and a.steps == t.n_steps
+    # with host replay off it classifies as a coverage gap, as in JAX
     assert P.classify_witness(t, host_replay=False).to_json() \
         == jcw(jt, host_replay=False).to_json()
-    rc, out = _run(pcli.main, ["hunt", "run", "--dir", str(tmp_path),
-                               "--protocols", "bpaxos_noread",
-                               "--device", "cpu"])
-    assert rc == 2 and out == []
-    rc, out = _run(pcli.main, ["scenario", "run", "-host", "-algorithm",
-                               "epaxos", "-replicas", "3", "-zones", "3"])
-    assert rc == 2 and out == []
+    argv = ["hunt", "run", "--protocols", "bpaxos_noread", "--budget", "0",
+            "--traces-dir", str(tmp_path / "none"), "--quiet"]
+    from paxi_tpu import cli as jcli
+    jrc, jout = _run(jcli.main, argv + ["--dir", str(tmp_path / "jax")])
+    prc, pout = _run(pcli.main, argv + ["--dir", str(tmp_path / "port"),
+                                        "--device", "cpu"])
+    assert prc == jrc == 0 and _no_wall(pout) == _no_wall(jout) and pout
+    (jrc, jout), (prc, pout) = _both_clocked(
+        ["scenario", "run", "-host", "-algorithm", "epaxos", "-replicas",
+         "3", "-zones", "3"])
+    assert prc == jrc == 0 and pout == jout and pout[0]["ops_ok"] > 0
+
+
+def test_scenario_host_of_a_sim_only_name_fails_as_reference():
+    """A sim name without a host twin of its own fails in
+    ``replay_schedule``'s registry lookup: the exit code and the last line
+    of standard error are ``python -m paxi_tpu``'s."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    name = "wpaxos_thinq1"
+    argv = ["scenario", "run", "-host", "-algorithm", name, "-replicas",
+            "3", "-zones", "3", "-steps", "4"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = {}
+    for pkg in ("paxi_tpu", "paxi_tpu_torch"):
+        r = subprocess.run([sys.executable, "-m", pkg] + argv, cwd=root,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        out[pkg] = (r.returncode, r.stdout, r.stderr.strip().splitlines()[-1])
+    assert out["paxi_tpu_torch"] == out["paxi_tpu"]
+    assert out["paxi_tpu"] == (1, "", f"KeyError: '{name}'")

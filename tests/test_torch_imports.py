@@ -93,10 +93,12 @@ def test_registry_modules_are_in_the_port():
 
 
 def test_host_registry_modules_are_in_the_port():
+    from paxi_tpu.protocols import _HOST_MODULES as JHOST
     from paxi_tpu_torch.protocols import _HOST_MODULES, host_replica
-    assert sorted(_HOST_MODULES) == ["fragile_counter", "paxos",
-                                     "switchpaxos", "switchpaxos_nogap"]
+    assert list(_HOST_MODULES) == list(JHOST) and len(JHOST) == 16
     for name, module in _HOST_MODULES.items():
+        assert module == JHOST[name].replace("paxi_tpu.", "paxi_tpu_torch.",
+                                             1)
         assert module.startswith("paxi_tpu_torch.")
         assert host_replica(name).__module__ == module
 
@@ -110,8 +112,12 @@ def test_host_replay_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import paxi_tpu_torch.hunt, paxi_tpu_torch.cli\n"
+        "import importlib\n"
         "from paxi_tpu_torch.protocols import _HOST_MODULES, host_replica\n"
+        "assert len(_HOST_MODULES) == 16\n"
         "[host_replica(n) for n in _HOST_MODULES]\n"
+        "[importlib.import_module(m) for m in _HOST_MODULES.values()]\n"
+        "import paxi_tpu_torch.core.policy\n"
         "import paxi_tpu_torch.host.simulation, paxi_tpu_torch.obs\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paxi_tpu'))\n"

@@ -364,57 +364,90 @@ def test_measure_quarantine_through_a_helper(tmp_path):
 
 
 # ---- trace-map mutants ---------------------------------------------------
-def _tracemap_root(tmp_path, maps: str) -> Path:
-    put(tmp_path, "paxi_tpu_torch/protocols/__init__.py", '''\
-        _SIM_MODULES = {
+def _tracemap_root(tmp_path, twin: str, twin_of: bool = False) -> Path:
+    """A registry of three sim protocols (``fx_var`` a variant on fx's
+    kernel, ``fy`` without a host twin) and fx's host twin ``twin``
+    (behind a ``TWIN_OF`` shim with ``twin_of``)."""
+    fx_host = ("paxi_tpu_torch.protocols.fx.shim" if twin_of
+               else "paxi_tpu_torch.protocols.fx.host")
+    put(tmp_path, "paxi_tpu_torch/protocols/__init__.py", f'''\
+        _SIM_MODULES = {{
             "fx": "paxi_tpu_torch.protocols.fx.sim",
             "fx_var": "paxi_tpu_torch.protocols.fx.sim:PROTOCOL_VAR",
             "fy": "paxi_tpu_torch.protocols.fy.sim",
-        }
+        }}
+        _HOST_MODULES = {{
+            "fx": "{fx_host}",
+        }}
         ''')
     for name in ("fx", "fy"):
         put(tmp_path, f"paxi_tpu_torch/protocols/{name}/sim.py", '''\
             def mailbox_spec(cfg):
                 return {"p1a": ("bal",), "p2a": ("bal", "slot")}
             ''')
-    put(tmp_path, "paxi_tpu_torch/trace/host.py", maps)
+    put(tmp_path, "paxi_tpu_torch/protocols/fx/host.py", twin)
+    put(tmp_path, "paxi_tpu_torch/protocols/fx/shim.py", '''\
+        TWIN_OF = "paxi_tpu_torch.protocols.fx.host"
+        ''')
     return tmp_path
 
 
+TWIN_HEAD = (
+    "from paxi_tpu_torch.host.codec import register_message\n\n\n"
+    "@register_message\nclass P1a:\n    pass\n\n\n"
+    "@register_message\nclass P2a:\n    pass\n\n\n")
+
+
 def test_tracemap_mutants(tmp_path):
-    root = _tracemap_root(tmp_path, '''\
-        TRACE_MSG_MAPS = {
-            "fx": {"p1a": "P1a", "p3": "P3"},
-        }
-        ''')
+    root = _tracemap_root(
+        tmp_path, TWIN_HEAD + 'TRACE_MSG_MAP = {"p1a": "P1a", "p3": "P3"}\n')
     vs = tracemap.check(root)
     got = sorted((v.code, v.path, v.line) for v in vs)
+    host = "paxi_tpu_torch/protocols/fx/host.py"
     assert got == [
         ("PXT301", "paxi_tpu_torch/protocols/__init__.py", 4),   # fy
-        ("PXT302", "paxi_tpu_torch/trace/host.py", 2),           # p2a
-        ("PXT303", "paxi_tpu_torch/trace/host.py", 2),           # p3
+        ("PXT302", host, 14),                                     # p2a
+        ("PXT303", host, 14),                                     # p3
+        ("PXT304", host, 14),                                     # P3
     ]
     # the variant projects through its base's map, reported once
     assert sum("`p2a`" in v.message for v in vs) == 1
-    clean = _tracemap_root(tmp_path, '''\
-        TRACE_MSG_MAPS = {
-            "fx": {"p1a": "P1a", "p2a": "P2a"},
-            "fy": {"p1a": "P1a", "p2a": "P2a"},
-        }
-        ''')
-    assert tracemap.check(clean) == []
+    # a twin without a map projects nothing
+    bare = _tracemap_root(tmp_path, TWIN_HEAD)
+    assert [v.code for v in tracemap.check(bare)] == ["PXT301"] * 3
+    clean_twin = TWIN_HEAD + \
+        'TRACE_MSG_MAP = {"p1a": "P1a", "p2a": "P2a"}\n'
+    for twin_of in (False, True):
+        clean = _tracemap_root(tmp_path, clean_twin, twin_of=twin_of)
+        assert [v.code for v in tracemap.check(clean)] == ["PXT301"]
 
 
 def test_tracemap_registry_is_the_ports():
+    import importlib
+
+    from paxi_tpu.analysis import tracemap as ref_tracemap
+    from paxi_tpu_torch.protocols import _HOST_MODULES, _SIM_MODULES
+    from paxi_tpu_torch.trace.host import host_algorithm, trace_msg_map
     names = {p for p, _, _ in tracemap.registry(ROOT)}
-    from paxi_tpu_torch.protocols import _SIM_MODULES
     assert names == set(_SIM_MODULES)
-    from paxi_tpu_torch.trace.host import TRACE_MSG_MAPS, host_algorithm
     maps = tracemap.trace_maps(ROOT)
-    assert {k: v for k, (v, _) in maps.items()} == TRACE_MSG_MAPS
+    assert sorted(maps) == sorted(_HOST_MODULES)
+    for name, (m, _) in maps.items():
+        assert m == trace_msg_map(name), name
+        base = importlib.import_module(_HOST_MODULES[name])
+        assert m == base.TRACE_MSG_MAP, name
     for proto, mod, _ in tracemap.registry(ROOT):
         assert tracemap.base_protocol(proto, mod, maps) == \
             host_algorithm(proto)
+    # each map read from the same twin file as the JAX package's rule
+    # reads its twin's
+    ref = {p: str(h.relative_to(ROOT)) for p, _, h
+           in ref_tracemap.analyzed_pairs(ROOT)}
+    files = tracemap.twin_modules(ROOT)
+    for proto, path in ref.items():
+        base = host_algorithm(proto)
+        assert str(files[base].relative_to(ROOT)) == \
+            path.replace("paxi_tpu/", "paxi_tpu_torch/", 1), proto
 
 
 # ---- proof parity with the JAX package -----------------------------------
