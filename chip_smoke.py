@@ -48,7 +48,7 @@ non-zero exit code and no result line:
    its saved file to the capture's state hash, counters and latency
    histogram, and the real wpaxos under the same schedule with 0
    violations; the same case at the hunt's 16 groups recorded on the card
-   and on the CPU (every plane equal), then shrunk on the card (40
+   and on the CPU (every plane equal), then shrunk on the card (10
    replays); wpaxos 3 x 3 under wan3z alone at 100,000 groups (bench_all's
    ``wpaxos_wan3z_geo``) with its zone-local and cross-zone latency; and
    the fuzzed paxos path resumed from a checkpoint (52 steps,
@@ -67,7 +67,7 @@ non-zero exit code and no result line:
 7. workloads (``bench_all.py --workload``'s matrix): paxos 3 x 16 x 64
    keys and the wpaxos 3 x 3 grid (16 objects over 32 keys) under the
    uniform, zipf99 and flash specs at 100,000 groups (paxos 120 steps,
-   wpaxos 60), each read with its own launch counts, with the per-class
+   wpaxos 45), each read with its own launch counts, with the per-class
    latency split and, for wpaxos, the steals; paxos uniform and zipf99
    must commit 11,600,000 and wpaxos zipf99 steal at least 10 more than
    uniform; the lowering pin at full width (paxos_pg, the per-group
@@ -105,7 +105,8 @@ non-zero exit code and no result line:
    each exchange half a step; the ``switchpaxos_nogap`` twin captured at
    100,000 x 80 under DROP (a violating group found, one replay equal),
    and the seqchurn row's own violation captured and replayed the same
-   way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn,
+   way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn
+   at 64 x 12,
    nogap at 16 groups and the per-group ``fragile_counter`` and
    ``relay_churn`` demos at their hunt shapes, card against CPU (the
    twins and demos must violate); a step split of the three rows; the
@@ -145,7 +146,7 @@ non-zero exit code and no result line:
    ``scripts/torch_step_profile.py`` profile, and ``paxos_sw``'s step
    split beside phase 4's of ``paxos``); the other four
    twins at their fixed-cell rows' shapes, seeds and counts
-   (``SW_ROWS``); every twin card against CPU at 64 x 20 under DROP; and
+   (``SW_ROWS``); every twin card against CPU at 64 x 12 under DROP; and
    ``python -m paxi_tpu_torch.workload.demo`` on the card, its four
    stage lines equal to the CPU's;
 12. the host-sync audit (slice 12): every kernel of the sim registry and
@@ -171,7 +172,25 @@ non-zero exit code and no result line:
    3, 24 steps) under wan3z and relay_churn under churn, each equal to
    the JAX package's line on the CPU (``SCENARIO_TWIN_LINES``); the phase
    must take under 60 s;
-14. the kernel summary line, the ``nvidia-smi`` line, and last the result
+14. serving (slice 15; asyncio on the card machine's CPU, no kernel, the
+   launch counts read 0): ``python -m paxi_tpu_torch server -simulation``
+   (paxos x 3, head sampling 0.2) as a process and ``client -N 200``
+   against it as a process (exit 0, 0 errors, 0 anomalies), ``metrics
+   -url`` scraped from it, ``spans render|export`` over every node's
+   ``GET /spans`` (0 orphans); ``bench-host`` closed loop with
+   ``-trace_sample`` (0 anomalies, its span phases); ``python -m
+   paxi_tpu_torch.bench_host`` at ``BENCH_HOST_T=1`` over its CONFIGS but
+   wpaxos (``BENCH_HOST_SKIP``: the reference's own steal livelock), every
+   linearizable row 0 anomalies and 0 errors, dynamo and blockchain
+   ``eventual``; ``python -m paxi_tpu_torch.soak_host`` on paxos at
+   ``SOAK_HOST_T=4`` (0 anomalies); the sweep and the soak run in their
+   own processes beside the server and the client;
+   the native checker built,
+   and on the client history's largest key equal to the pure-Python
+   loop.  One line a row: ops/s, p50/p99, errors, anomalies, the card's
+   ``nvidia-smi`` line and the host CPU's model (host figures); the
+   phase must take under 45 s;
+15. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -188,6 +207,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -407,7 +427,7 @@ DEMO_CASES = {c[0]: (cfg_kwargs(c[1]), tuple(map(schedule_key, c[2])),
                      c[3], c[4])
               for c in hunt_cases.DEMO_CASES
               if c[0] in ("fragile_counter", "relay_churn")}
-SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 20
+SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 12   # 20 until phase 14
 # bench_all.py's FUZZ schedule (blockchain_forks)
 BENCH_FUZZ_ARGS = non_default(bench_all.FUZZ)
 # the seeded twins (hunt/cases.py BUG_DEMO and DEMO_CASES), under DROP, at
@@ -435,7 +455,8 @@ PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
 # wpaxos_thinq1 under GEO3Z: p_drop 0.05 inside the wan3z zone-latency
 # matrix), captured and replayed at GROUPS, shrunk at the hunt's 16 groups
 WITNESS_CFG = hunt_cfg("wpaxos_thinq1", 9)
-WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 40, 0.05
+# (the shrink's trials 40 until phase 14 came, 61 s on the card; 10 now)
+WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 10, 0.05
 # bench_all.py's wpaxos_wan3z_geo row: wpaxos 3 x 3 under wan3z alone
 SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
 SCENARIO_STEPS = 100
@@ -446,7 +467,9 @@ WL_CFGS = {r[1]: cfg_kwargs(r[2]) for r in bench_all._wl_cfgs(DEVICE)}
 WL_NAMES = ("uniform", "zipf99", "flash")
 # wpaxos cut from bench_all's 120 steps to 60 for time (PERF.md section
 # 4); 60 still holds flash's first surge, steps 30-41
-WL_STEPS = {"paxos": 120, "wpaxos": 60}
+# wpaxos 60 steps until phase 14 came; 45 still hold flash's first surge
+# (steps 30-41); at 60, zipf99 stole 158,452 times, uniform 9,982
+WL_STEPS = {"paxos": 120, "wpaxos": 45}
 # a workloadless fault-free paxos 3 x 16 group commits steps - 4 slots; a
 # spec without a flash gate changes keys, reads and classes only
 WL_EXPECT = {("paxos", "uniform"): 116 * GROUPS,
@@ -512,9 +535,9 @@ SW_ROWS = {
 }
 for _row in SW_ROWS.values():
     _row["line"] = "sw_twin"
-# every twin card against CPU at 64 x 20 under the hunt's DROP, at its
+# every twin card against CPU at 64 x 12 under the hunt's DROP, at its
 # row's configuration (paxos_sw at the main path's)
-SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 20
+SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 12           # 20 until phase 14
 SW_SMALL_CFGS = {"paxos_sw": PATHS["paxos"]["cfg"],
                  **{k: r["cfg"] for k, r in SW_ROWS.items()}}
 
@@ -574,6 +597,29 @@ TWIN_HUNT_DIR = SCRATCH_DIR + "/hunt_twins"
 NOFLOOR_WITNESS = SCRATCH_DIR + "/twin_witnesses/wankeeper_nofloor_100k"
 THINQ1_WITNESS = SCRATCH_DIR + "/witness"        # phase 5 saves it
 TWIN_SECONDS = 60
+
+# phase 14, serving (slice 15): the host runtime's client REST API, as
+# asyncio Python on the CPU; no kernel runs.  Every row it prints is a
+# host figure of the card's machine
+SERVING_DIR = SCRATCH_DIR + "/serving"
+SERVING_SECONDS = 45
+SERVE_OPS = 200                      # client -N, paxos x 3
+SERVE_TRACE_SAMPLE = 0.2             # the server's head sampling
+BENCH_HOST_CLOSED_ARGV = ["bench-host", "-T", "2", "-warmup", "0.5",
+                          "-K", "64", "-trace_sample", "0.2"]
+# bench_host's CONFIGS on the card's machine, at BENCH_HOST_T=1, but
+# wpaxos: under bench_host's load (K=8, concurrency 4, seed 1) both
+# packages' wpaxos twins stop at the same 224th op, two replicas (1.1 and
+# 2.1) stealing key 7 from each other without end, and each of the four
+# streams then fails after 10 s on every one of the six replicas (61 s, 4
+# errors; ROADMAP Queue 3)
+BENCH_HOST_SKIP = ("wpaxos",)
+SOAK_PROTOCOL = "paxos"
+# SOAK_HOST_T: the run's seconds (8 by default).  Each fault window that
+# catches an op in flight holds that op for the server's 10 s request
+# timeout (12.5-33 s a paxos run at 8 s); at 4 s the crash, drop and flaky
+# windows open under load and the leader crash (4.5 s) as it ends
+SOAK_SECONDS = 4
 
 
 def scenario_host_line(algorithm: str, extra, rc: int, steps: int,
@@ -2423,7 +2469,7 @@ def layout_ab_phase(paxos_line: dict, smi: str):
 
 def sw_small_phase():
     """Every sliding-window twin at its row's configuration, card against
-    CPU at 64 x 20 under the hunt's DROP: equal state, metrics (the
+    CPU at 64 x 12 under the hunt's DROP: equal state, metrics (the
     ``net_*`` counters among them) and violations, and no violation."""
     for name, cfg_kw in SW_SMALL_CFGS.items():
         card_vs_cpu_case(name, cfg_kw, "hunt_drop", SW_SMALL_GROUPS,
@@ -2700,6 +2746,364 @@ def host_twins_phase(smi: str):
     log("host_twins_phase " + json.dumps({"seconds": seconds}))
     if seconds > TWIN_SECONDS:
         fail(f"the host twins took {seconds:.1f} s, over {TWIN_SECONDS} s")
+    return launches
+
+
+# ---- phase 14: serving ----------------------------------------------------
+
+def ephemeral_low() -> int:
+    """The lowest port the kernel hands out to outgoing connections: a
+    listening port in that range can be taken by a client's socket
+    between two clusters that reuse it (the card's machine reads 16000)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+_NEXT_BASE = [10000]
+
+
+def free_base(n: int) -> int:
+    """A base port whose ``n`` peer ports and ``n`` HTTP ports (1000
+    above, ``local_config``'s layout) are free and below the ephemeral
+    range, never one handed out before in this run (a process started a
+    moment ago may not have bound its ports yet)."""
+    import socket
+    top = max(ephemeral_low() - 1000 - n, _NEXT_BASE[0] + 1)
+    for base in range(_NEXT_BASE[0], top, 97):
+        ok = True
+        for port in [base + d + k for d in (0, 1000) for k in range(n)]:
+            with socket.socket() as sk:
+                try:
+                    sk.bind(("127.0.0.1", port))
+                except OSError:
+                    ok = False
+            if not ok:
+                break
+        if ok:
+            _NEXT_BASE[0] = base + 97
+            return base
+    fail("serving: no free port block below the ephemeral range")
+    return 0
+
+
+def cpu_model() -> str:
+    """The host CPU: its model name where ``/proc/cpuinfo`` or ``lscpu``
+    gives one (x86), else its implementer and part numbers (Arm), with
+    the machine type and the count of logical CPUs."""
+    import platform
+    info = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip().lower(), value.strip())
+    name = info.get("model name") or info.get("cpu model") or ""
+    if not name:
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.startswith("Model name:")), "")
+    if not name and "cpu part" in info:
+        name = (f"implementer {info.get('cpu implementer', '?')} part "
+                f"{info['cpu part']}")
+    return f"{name or 'unknown'} ({platform.machine()}), " \
+        f"{os.cpu_count()} CPUs"
+
+
+def serving_row(label: str, row: dict, host: dict) -> None:
+    """One line a serving row: ops/s, p50/p99, errors, anomalies, and
+    where the figure was taken (host figures of the card's machine)."""
+    log("serving_row " + json.dumps({
+        "row": label, "ops_s": row.get("ops_s"),
+        "p50_ms": row.get("p50_ms"), "p99_ms": row.get("p99_ms"),
+        "ops": row.get("ops"), "errors": row.get("errors"),
+        "anomalies": row.get("anomalies"), **{k: v for k, v in row.items()
+                                             if k not in ("ops_s", "p50_ms",
+                                                          "p99_ms", "ops",
+                                                          "errors",
+                                                          "anomalies")},
+        **host}))
+
+
+def summary_row(summary: dict) -> dict:
+    """A Stats.summary() (client, bench-host) as a serving row."""
+    return {"ops_s": summary["throughput_ops_s"],
+            "p50_ms": summary["latency_p50_ms"],
+            "p99_ms": summary["latency_p99_ms"], "ops": summary["ops"],
+            "errors": summary["errors"],
+            "anomalies": summary.get("anomalies")}
+
+
+def run_cli(argv) -> tuple:
+    """``python -m paxi_tpu_torch ARGV`` as ``cli.main`` runs it in this
+    process: (exit code, stdout)."""
+    from paxi_tpu_torch import cli
+    return captured(cli.main, argv)
+
+
+def serve_and_client_phase(host: dict) -> str:
+    """``server -simulation`` (paxos x 3, head sampling on) as a process,
+    ``client -N`` against it as a process, ``metrics -url``, and ``spans
+    render|export`` over every node's ``GET /spans``.  Returns the
+    client's history file."""
+    import asyncio
+    import urllib.request
+
+    from paxi_tpu_torch.core.config import Bconfig, local_config
+    from paxi_tpu_torch.host.transport import wait_listening
+
+    cfg = local_config(3, base_port=free_base(3))
+    # 4 keys: ~50 ops a key, over the native checker's 32
+    cfg.benchmark = Bconfig(T=0, N=SERVE_OPS, K=4, concurrency=4,
+                            linearizability_check=True)
+    cfg_path = SERVING_DIR + "/cluster.json"
+    history = SERVING_DIR + "/client_history.json"
+    cfg.to_json(cfg_path)
+    root = str(Path(__file__).resolve().parent)
+    server = subprocess.Popen(
+        [sys.executable, "-m", "paxi_tpu_torch", "server", "-simulation",
+         "-algorithm", "paxos", "-config", cfg_path], cwd=root,
+        env={**os.environ, "PAXI_TRACE_SAMPLE": str(SERVE_TRACE_SAMPLE)},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        urls = [cfg.http_addrs[i] for i in cfg.ids]
+        t0 = time.perf_counter()
+        if not asyncio.run(wait_listening(urls[0], timeout_s=60)):
+            fail("server -simulation never served its HTTP address: "
+                 + (server.stderr.read().decode()[-2000:]
+                    if server.poll() is not None else "still running"))
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paxi_tpu_torch", "client", "-config",
+             cfg_path, "-N", str(SERVE_OPS), "-history_file", history],
+            capture_output=True, text=True, timeout=180, cwd=root)
+        client_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"client: rc {proc.returncode}\n{proc.stdout[-1000:]}\n"
+                 f"{proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        if summary["ops"] != SERVE_OPS or summary["errors"] != 0 \
+                or summary.get("anomalies") != 0:
+            fail(f"client: {summary}")
+        serving_row("client_paxos_r3", {
+            **summary_row(summary), "server_up_s": up_s,
+            "client_process_s": client_s}, host)
+        rc, text = run_cli(["metrics", "-url", urls[0]])
+        if rc != 0 or "paxi_client_requests_total" not in text:
+            fail(f"metrics -url: rc {rc}\n{text[-2000:]}")
+        with urllib.request.urlopen(urls[0] + "/metrics", timeout=10) as r:
+            prom = r.read().decode()
+        log("serving_metrics " + json.dumps({
+            "url": urls[0], "lines": text.count("\n"),
+            "prometheus_lines": prom.count("\n"),
+            "client_requests": [ln for ln in text.splitlines()
+                                if "paxi_client_requests_total" in ln]}))
+        scrapes = []
+        for url in urls:
+            with urllib.request.urlopen(url + "/spans", timeout=10) as r:
+                scrapes.append(json.load(r))
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait(timeout=10)
+    spans_file = SERVING_DIR + "/spans.json"
+    with open(spans_file, "w") as f:
+        json.dump({"nodes": scrapes}, f)
+    rc, text = run_cli(["spans", "render", "-file", spans_file])
+    tail = text.strip().splitlines()[-1] if text.strip() else ""
+    if rc != 0 or not tail.endswith(" 0 orphans") or tail.startswith("0 "):
+        fail(f"spans render: rc {rc}, {tail!r}")
+    rc, _ = run_cli(["spans", "export", "-file", spans_file, "-out",
+                     SERVING_DIR + "/spans_chrome.json"])
+    if rc != 0:
+        fail(f"spans export: rc {rc}")
+    log("serving_spans " + json.dumps({
+        "sample_rate": SERVE_TRACE_SAMPLE, "render": tail,
+        "spans_by_node": {d["node"]: len(d["spans"]) for d in scrapes}}))
+    return history
+
+
+def bench_host_cli_phase(host: dict) -> None:
+    """``bench-host`` closed loop in this process with head sampling on:
+    0 anomalies, 0 errors, the five-phase span decomposition present."""
+    out = SERVING_DIR + "/bench_host_closed.json"
+    argv = BENCH_HOST_CLOSED_ARGV + ["-base_port", str(free_base(3)),
+                                     "-out", out]
+    t0 = time.perf_counter()
+    rc, text = run_cli(argv)
+    wall_s = time.perf_counter() - t0
+    line = json.loads(text.strip().splitlines()[-1])
+    if rc != 0 or line.get("anomalies") != 0 or line["errors"] != 0 \
+            or not line.get("span_phases"):
+        fail(f"bench-host: rc {rc}, {line}")
+    serving_row("bench_host_closed_paxos_r3", {
+        **summary_row(line), "argv": argv, "wall_s": wall_s,
+        "span_phases": line["span_phases"]}, host)
+
+
+def start_module(module: str, args, env=None) -> subprocess.Popen:
+    """``python -m MODULE ARGS`` from the checkout's root, its output
+    piped; the caller ends it through ``finish_module``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", module] + list(args),
+        cwd=str(Path(__file__).resolve().parent),
+        env={**os.environ, **(env or {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_module(proc: subprocess.Popen, timeout: float) -> tuple:
+    """(exit code, stdout, stderr) of a ``start_module`` process, killed
+    if it outlives ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    return proc.returncode, out, err
+
+
+def bench_host_names():
+    from paxi_tpu_torch import bench_host
+    return [c[0] for c in bench_host.CONFIGS if c[0] not in BENCH_HOST_SKIP]
+
+
+def start_bench_host_twin() -> subprocess.Popen:
+    return start_module(
+        "paxi_tpu_torch.bench_host",
+        ["--protocols", ",".join(bench_host_names()), "--base-port",
+         str(free_base(6)), "--out", SERVING_DIR + "/BENCH_HOST.json"],
+        env={"BENCH_HOST_T": "1"})
+
+
+def bench_host_twin_phase(proc: subprocess.Popen, host: dict) -> None:
+    """``python -m paxi_tpu_torch.bench_host`` at BENCH_HOST_T=1 over its
+    CONFIGS but BENCH_HOST_SKIP: every linearizable row 0 anomalies and 0
+    errors, dynamo and blockchain labelled eventual."""
+    from paxi_tpu_torch import bench_host
+    names = bench_host_names()
+    rc, stdout, stderr = finish_module(proc, 300)
+    rows = [json.loads(x) for x in stdout.splitlines()
+            if x.startswith("{")]
+    lin = {c[0]: c[3] for c in bench_host.CONFIGS}
+    bad = [r for r in rows if "error" in r or r["consistency"] != (
+        "linearizable" if lin[r["protocol"]] else "eventual")
+        or r["errors"] != 0 or (r["anomalies"] or 0) != 0]
+    if rc != 0 or bad or [r["protocol"] for r in rows] != names:
+        fail(f"bench_host: rc {rc}, rows "
+             f"{[r.get('protocol') for r in rows]}, at fault "
+             f"{[{k: v for k, v in r.items() if k != 'metrics'} for r in bad]}"
+             f"\n{stderr[-2000:]}")
+    for r in rows:
+        serving_row(f"bench_host_{r['protocol']}", {
+            "ops_s": r["value"], "p50_ms": r["latency"]["latency_p50_ms"],
+            "p99_ms": r["latency"]["latency_p99_ms"], "ops": r["ops"],
+            "errors": r["errors"], "anomalies": r["anomalies"],
+            "consistency": r["consistency"], "replicas": r["replicas"],
+            "zones": r["zones"], "row_wall_s": r["wall_s"]}, host)
+    for name in BENCH_HOST_SKIP:
+        log("serving_row_skipped " + json.dumps({
+            "row": f"bench_host_{name}", "reason": "the reference's own "
+            "steal livelock at op 224 (ROADMAP Queue 3)"}))
+    log("serving_bench_host " + json.dumps({"rows": len(rows)}))
+
+
+def native_check_phase(history_path: str) -> None:
+    """The native checker was built and is used: on the key of the
+    client's own history with the most ops, its count equals the
+    pure-Python loop's."""
+    from paxi_tpu_torch.host import history, native
+    if not native.native_available():
+        fail(f"the native checker did not build: {native.build_error}")
+    with open(history_path) as f:
+        dump = json.load(f)
+    key, ops = max(dump.items(), key=lambda kv: len(kv[1]))
+    ops = [history.Operation(
+        o["input"].encode("latin1") if o["input"] is not None else None,
+        o["output"].encode("latin1") if o["output"] is not None else None,
+        o["start"], math.inf if o["end"] is None else o["end"])
+        for o in ops]
+    if len(ops) < 32:
+        fail(f"client history: key {key} has {len(ops)} ops, under the "
+             "native checker's 32")
+    calls = native.calls
+    t0 = time.perf_counter()
+    got = history.check_key(ops)
+    native_s = time.perf_counter() - t0
+    if native.calls != calls + 1:
+        fail("history.check_key did not go through the native checker")
+    t0 = time.perf_counter()
+    plain, left = 0, sorted(ops, key=lambda o: (o.start, o.end))
+    while (bad := history._find_cycle_read(left)) is not None:
+        plain += 1
+        left = [o for o in left if o is not bad]
+    plain_s = time.perf_counter() - t0
+    log("serving_native_lincheck " + json.dumps({
+        "library": native.library_path().name, "key": key, "ops": len(ops),
+        "anomalies": got, "python_anomalies": plain, "native_s": native_s,
+        "python_s": plain_s}))
+    if got != plain or got != 0:
+        fail(f"native checker {got} != python {plain} (or not 0)")
+
+
+def serving_phase(smi: str):
+    """Phase 14: the serving stack on the card's machine (asyncio on the
+    CPU; no kernel runs, the launch counts read 0).  The soak and the
+    bench_host sweep run in their own processes beside the server, the
+    client and bench-host.  Returns the launch counts."""
+    import shutil
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    os.makedirs(SERVING_DIR)
+    host = {"device": smi, "cpu": cpu_model(), "figures": "host"}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    soak_out = SERVING_DIR + "/SOAK_HOST.json"
+    soak = start_module(
+        "paxi_tpu_torch.soak_host",
+        ["--protocols", SOAK_PROTOCOL, "--base-port", str(free_base(3)),
+         "--out", soak_out], env={"SOAK_HOST_T": str(SOAK_SECONDS)})
+    twin = start_bench_host_twin()
+    try:
+        history_path = serve_and_client_phase(host)
+        bench_host_cli_phase(host)
+        native_check_phase(history_path)
+        bench_host_twin_phase(twin, host)
+        rc, soak_stdout, soak_stderr = finish_module(soak, 120)
+    finally:
+        for proc in (soak, twin):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    if rc != 0:
+        fail(f"soak_host {SOAK_PROTOCOL}: rc {rc}\n"
+             f"{soak_stdout[-1000:]}\n{soak_stderr[-2000:]}")
+    with open(soak_out) as f:
+        (row,) = json.load(f)
+    if row["anomalies"] != 0 or row["ops"] <= 0:
+        fail(f"soak_host {SOAK_PROTOCOL}: {row}")
+    serving_row(f"soak_host_{SOAK_PROTOCOL}", {
+        "ops_s": round(row["ops"] / row["duration_s"], 1),
+        "p50_ms": row["latency"]["latency_p50_ms"],
+        "p99_ms": row["latency"]["latency_p99_ms"], "ops": row["ops"],
+        "errors": row["errors"], "anomalies": row["anomalies"],
+        "duration_s": row["duration_s"], "soak_host_t": SOAK_SECONDS,
+        "fault_schedule": row["fault_schedule"]}, host)
+    launches = launch_counts()
+    seconds = time.perf_counter() - t0
+    log("serving_phase " + json.dumps({"seconds": seconds,
+                                       "kernels": launches}))
+    if any(launches.values()):
+        fail(f"the serving phase launched kernels: {launches}")
+    if seconds > SERVING_SECONDS:
+        fail(f"serving took {seconds:.1f} s, over {SERVING_SECONDS} s")
     return launches
 
 
@@ -3132,14 +3536,21 @@ def main() -> int:
     t13 = time.perf_counter()
     driver_launches["hunt_twins_campaign"] = host_twins_phase(smi)
     t13 = time.perf_counter() - t13
+
+    # 14. serving: server -simulation and client as processes, the
+    # metrics and spans scrapes, bench-host, the bench_host and soak_host
+    # twins, the native checker (host figures; no kernel runs)
+    t14 = time.perf_counter()
+    driver_launches["serving"] = serving_phase(smi)
+    t14 = time.perf_counter() - t14
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
         "slice11_bench_and_sw_twins": t11, "sync_audit": t12,
-        "host_twins": t13,
+        "host_twins": t13, "serving": t14,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 14. the kernel summary: launches from the epaxos main path (the one
+    # 15. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]

@@ -1,25 +1,42 @@
 """Command-line entry points of the port (the JAX package's ``cli.py``:
 the same subcommands, flags, JSON output and exit codes).
 
+The reference's three binaries, on the host runtime (asyncio Python on
+the CPU, the client REST API of ``host/http.py``):
+
+    python -m paxi_tpu_torch server -id 1.1 -algorithm paxos [-simulation]
+        (``-simulation`` runs every id of the config in one process over
+        the in-process fabric, each serving its HTTP address)
+    python -m paxi_tpu_torch client [-N 60 | -T 10]
+        (the closed-loop benchmark of the config's benchmark block, with
+        the linearizability check)
+    python -m paxi_tpu_torch cmd     (the admin REPL: get/put/crash/drop)
+    python -m paxi_tpu_torch bench-host [--open-loop] [--cluster-proc]
+    python -m paxi_tpu_torch metrics -url URL | -file F [-raw] | --series
+    python -m paxi_tpu_torch spans render|export -url URL | -file F
+
+and the sim runtime:
+
     python -m paxi_tpu_torch sim -algorithm paxos -groups 100000 \
         -replicas 5 -slots 64 -steps 104
     python -m paxi_tpu_torch profile | trace info|replay|shrink|host FILE |
         hunt run|status|report [--no-host] | scenario list|run [-host] |
-        workload list|run | metrics --series | lint [PATHS]
+        workload list|run | lint [PATHS]
 
 Every subcommand that runs the sim takes ``-device``/``--device``: the
-card by default, ``cpu`` to run on the CPU.  The host runtime (``trace
-host``'s projection, ``scenario run -host`` and the hunt's host replay)
-is asyncio Python on the CPU, as in the JAX package; it drives the host
-twin of every protocol (``protocols._HOST_MODULES``).
+card by default, ``cpu`` to run on the CPU.  The host runtime (serving,
+``trace host``'s projection, ``scenario run -host`` and the hunt's host
+replay) is asyncio Python on the CPU, as in the JAX package; it drives
+the host twin of every protocol (``protocols._HOST_MODULES``).
 ``lint`` is the port's paxi-lint (``paxi_tpu_torch/analysis``): pure AST,
-it needs no card.  Serving (``server``, ``client``, the metrics scrape)
-and ``spans`` are not ported yet.
+it needs no card.  ``bench-host --shards`` waits for the port of the
+JAX package's ``shard/`` and exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import sys
 
@@ -32,6 +49,412 @@ def _device_arg(sp) -> None:
 def _ints(metrics, skip=()) -> dict:
     return {k: int(v) for k, v in metrics.items()
             if not any(k.startswith(p) for p in skip)}
+
+
+# ---- serving (the host runtime's client REST API) ----------------------
+
+def _load_config(args):
+    from paxi_tpu_torch.core.config import Config, local_config
+    if args.config:
+        return Config.from_json(args.config)
+    return local_config(args.n, zones=getattr(args, "zones", 1))
+
+
+def cmd_server(args) -> int:
+    """One replica over its configured transport, or (``-simulation``)
+    every replica of the config in this process."""
+    from paxi_tpu_torch.utils import log
+    cfg = _load_config(args)
+    log.configure(args.log_level, args.log_dir, tag=args.id or "sim")
+    if args.simulation:
+        from paxi_tpu_torch.host.simulation import Cluster
+        cfg.addrs = {i: f"chan://sim/{i}" for i in cfg.addrs}
+
+        async def main():
+            c = Cluster(args.algorithm, cfg=cfg)
+            await c.start()
+            log.infof("simulation: %d replicas of %s running",
+                      len(cfg.addrs), args.algorithm)
+            await asyncio.Event().wait()
+        asyncio.run(main())
+        return 0
+    from paxi_tpu_torch.core.ident import ID
+    from paxi_tpu_torch.protocols import host_replica
+    replica = host_replica(args.algorithm)(ID(args.id), cfg)
+    log.infof("server %s (%s) on %s", args.id, args.algorithm,
+              cfg.addrs[ID(args.id)])
+    replica.run_forever()
+    return 0
+
+
+def cmd_client(args) -> int:
+    """The closed-loop benchmark against the config's HTTP addresses."""
+    cfg = _load_config(args)
+    b = cfg.benchmark
+    if args.T is not None:
+        b.T, b.N = args.T, 0
+    if args.N is not None:
+        b.T, b.N = 0, args.N
+    if args.concurrency:
+        b.concurrency = args.concurrency
+    from paxi_tpu_torch.host.benchmark import Benchmark
+    bench = Benchmark(cfg, b, seed=args.seed)
+    stats = asyncio.run(bench.run())
+    print(json.dumps(stats.summary()))
+    if args.history_file:
+        bench.history.write_file(args.history_file)
+    if stats.ops == 0 or (stats.anomalies or 0) > 0:
+        return 1   # total failure or a safety anomaly
+    return 0
+
+
+def cmd_bench_host(args) -> int:
+    """Host-serving benchmark (one protocol through the full stack).
+
+    Default: the closed-loop generator (``bench_host`` semantics, one
+    protocol).  ``--open-loop``: Poisson arrivals over pipelined
+    connections ramped across ``-rates``, reporting the saturation curve
+    (offered vs achieved vs latency) and a linearizability verdict over
+    the whole run; ``-out`` writes the artifact.  ``--cluster-proc`` runs
+    the cluster in a subprocess so the load generator and the replicas
+    do not share one interpreter."""
+    import os
+    import subprocess
+    import tempfile
+
+    from paxi_tpu_torch.core.config import local_config
+    from paxi_tpu_torch.host.transport import wait_listening
+
+    if args.shards:
+        print("bench-host: --shards needs the sharded serving tier (the "
+              "JAX package's shard/, ROADMAP item 29), which the port "
+              "has not ported yet", file=sys.stderr)
+        return 2
+
+    cfg = _load_config(args)
+    if not args.config:
+        cfg = local_config(args.n, zones=args.zones,
+                           base_port=args.base_port)
+    cfg.batch_size = args.batch_size
+    cfg.batch_wait = args.batch_wait
+    cfg.leader_reads = args.leader_reads
+    rates = [float(r) for r in args.rates.split(",") if r]
+
+    if args.trace_sample > 0:
+        # head-based sampling at the node HTTP entry; subprocess
+        # clusters inherit the rate via PAXI_TRACE_SAMPLE below
+        from paxi_tpu_torch.obs import set_sample_rate
+        set_sample_rate(args.trace_sample)
+
+    wl = None
+    if args.workload:
+        from paxi_tpu_torch.workload import named_workload
+        try:
+            wl = named_workload(args.workload)
+        except KeyError as e:
+            print(f"bench-host: {e.args[0]}", file=sys.stderr)
+            return 2
+
+    async def run_open_loop(target_cfg, worker_rates=None):
+        from paxi_tpu_torch.host.benchmark import OpenLoopBenchmark
+        bench = OpenLoopBenchmark(
+            target_cfg, rates=worker_rates or rates, step_s=args.step_s,
+            seed=args.seed, conns=args.conns, W=args.W, K=args.K,
+            key_base=args.key_base, client_tag=args.client_tag,
+            ops_per_req=args.ops_per_req,
+            max_inflight=args.max_inflight,
+            linearizability_check=not args.no_lin,
+            workload=wl, wl_stream=args.wl_stream)
+        return await bench.run()
+
+    if args.attach:
+        # generator-worker mode: drive an already-running cluster over
+        # the config's http addrs and print the raw report (the parent
+        # merges workers' counts, histograms and verdicts)
+        out = asyncio.run(run_open_loop(cfg))
+        print(json.dumps(out))
+        return 0 if (out.get("anomalies") or 0) == 0 \
+            and out["total_completed"] > 0 else 1
+
+    async def scrape_metrics(target_cfg):
+        """The leader's metrics snapshot over the REST surface (GET
+        /metrics?format=json), without reaching into another process."""
+        from paxi_tpu_torch.host.client import _Conn
+        conn = _Conn(target_cfg.http_addrs[target_cfg.ids[0]])
+        try:
+            status, _, payload = await conn.request(
+                "GET", "/metrics?format=json", {}, b"")
+            return json.loads(payload.decode()) if status == 200 else {}
+        except (IOError, OSError):
+            return {}
+        finally:
+            conn.close()
+
+    async def scrape_spans(target_cfg):
+        """Every node's GET /spans, merged and reduced to the five-phase
+        decomposition (queue/batch/quorum/exec/writeback)."""
+        from paxi_tpu_torch.host.client import Client
+        from paxi_tpu_torch.obs import aggregate_phases
+        cl = Client(target_cfg)
+        try:
+            return aggregate_phases(await cl.spans_all())
+        finally:
+            cl.close()
+
+    def wait_http(url, timeout_s=20.0):
+        return asyncio.run(wait_listening(url, timeout_s=timeout_s))
+
+    report = {"protocol": args.algorithm, "replicas": cfg.n,
+              "zones": len(cfg.zones()),
+              "batch_size": cfg.batch_size,
+              "batch_wait": cfg.batch_wait,
+              "leader_reads": cfg.leader_reads,
+              "ops_per_req": args.ops_per_req,
+              **({"workload": wl.name} if wl is not None else {}),
+              "cluster_proc": bool(args.cluster_proc
+                                   or args.gen_procs > 1)}
+
+    if args.cluster_proc or args.gen_procs > 1:
+        # the cluster lives in its own interpreter: chan peers inside
+        # that process, real TCP HTTP towards this one
+        cfg.addrs = {i: f"chan://benchhost/{i}" for i in cfg.addrs}
+        with tempfile.NamedTemporaryFile(
+                "w", suffix=".json", delete=False) as f:
+            cfg_path = f.name
+        cfg.to_json(cfg_path)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paxi_tpu_torch", "server",
+             "-simulation", "-algorithm", args.algorithm,
+             "-config", cfg_path],
+            env={**os.environ, "PAXI_TRACE_SAMPLE": str(args.trace_sample)})
+        try:
+            if not wait_http(cfg.http_addrs[cfg.ids[0]]):
+                print("bench-host: cluster subprocess never came up",
+                      file=sys.stderr)
+                return 2
+            if args.open_loop and args.gen_procs > 1:
+                out = _parallel_workers(args, cfg_path, rates)
+                out["cluster_metrics"] = asyncio.run(scrape_metrics(cfg))
+            elif args.open_loop:
+                out = asyncio.run(run_open_loop(cfg))
+                out["cluster_metrics"] = asyncio.run(scrape_metrics(cfg))
+            else:
+                out = asyncio.run(_closed_loop(args, cfg))
+            if args.trace_sample > 0:
+                out["span_phases"] = asyncio.run(scrape_spans(cfg))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+            try:
+                os.unlink(cfg_path)
+            except OSError:
+                pass
+        report.update(out)
+    else:
+        async def inproc():
+            from paxi_tpu_torch.host.simulation import Cluster
+            cfg.addrs = {i: f"chan://benchhost/{i}" for i in cfg.addrs}
+            c = Cluster(args.algorithm, cfg=cfg, http=True)
+            await c.start()
+            try:
+                if args.open_loop:
+                    out = await run_open_loop(cfg)
+                else:
+                    out = await _closed_loop(args, cfg)
+                from paxi_tpu_torch.metrics import merge_snapshots
+                out["cluster_metrics"] = merge_snapshots(
+                    r.metrics.snapshot() for r in c.replicas.values())
+                if args.trace_sample > 0:
+                    from paxi_tpu_torch.obs import aggregate_phases, merge
+                    out["span_phases"] = aggregate_phases(merge(
+                        [r.spans.export()
+                         for r in c.replicas.values()]))
+                return out
+            finally:
+                await c.stop()
+        report.update(asyncio.run(inproc()))
+
+    print(json.dumps({k: v for k, v in report.items()
+                      if k != "cluster_metrics"}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    anomalies = report.get("anomalies")
+    completed = report.get("total_completed", report.get("ops", 0))
+    return 1 if (anomalies or 0) > 0 or completed == 0 else 0
+
+
+def _parallel_workers(args, cfg_path: str, rates) -> dict:
+    """Fan the offered load over ``-gen_procs`` generator subprocesses
+    (each rate split evenly; disjoint key ranges and client tags) and
+    merge their reports: counts add, per-rate latency histograms
+    bucket-merge exactly, per-key-slice linearizability verdicts add."""
+    import subprocess
+
+    from paxi_tpu_torch.metrics import Histogram
+
+    n = args.gen_procs
+    worker_rates = [r / n for r in rates]
+    procs = []
+    for w in range(n):
+        cmd = [sys.executable, "-m", "paxi_tpu_torch", "bench-host",
+               "--open-loop", "--attach", "-config", cfg_path,
+               "-rates", ",".join(str(r) for r in worker_rates),
+               "-step_s", str(args.step_s), "-conns", str(args.conns),
+               "-W", str(args.W), "-K", str(args.K),
+               "-seed", str(args.seed + 1000 * w),
+               "-key_base", str(w * args.K),
+               "-ops_per_req", str(args.ops_per_req),
+               "-max_inflight", str(args.max_inflight),
+               "-client_tag", f"w{w}c"]
+        if args.workload:
+            # each worker keeps the spec but draws its own counter
+            # stream (deterministic per worker, independent across)
+            cmd += ["-workload", args.workload, "-wl_stream", str(w)]
+        if args.no_lin:
+            cmd.append("--no-lin")
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE))
+    reports = []
+    for w, p in enumerate(procs):
+        stdout, _ = p.communicate(timeout=600)
+        lines = stdout.decode().splitlines()
+        if p.returncode != 0 or not lines:
+            for q in procs:          # don't leave siblings running
+                if q.poll() is None:
+                    q.kill()
+            raise RuntimeError(
+                f"bench-host generator worker {w} failed "
+                f"(rc={p.returncode}, {len(lines)} output lines) — "
+                f"its stderr was inherited, see above")
+        reports.append(json.loads(lines[-1]))
+
+    steps = []
+    for i, rate in enumerate(rates):
+        merged = {"offered_ops_s": rate, "duration_s": args.step_s}
+        for k in ("submitted", "completed", "errors", "shed",
+                  "unfinished"):
+            merged[k] = sum(r["steps"][i][k] for r in reports)
+        merged["achieved_ops_s"] = round(
+            sum(r["steps"][i]["achieved_ops_s"] for r in reports), 1)
+        h = Histogram()
+        by_class: dict = {}
+        for r in reports:
+            for hs in r["metrics"]["histograms"]:
+                if hs["labels"].get("rate") != str(worker_rates[i]):
+                    continue
+                kc = hs["labels"].get("key_class")
+                if kc is None:
+                    h.merge(Histogram.from_snapshot(hs))
+                else:
+                    # workers double-record into a per-key-class series;
+                    # keep it out of the overall merge and bucket-merge
+                    # per class instead
+                    by_class.setdefault(kc, Histogram()).merge(
+                        Histogram.from_snapshot(hs))
+        merged["latency_ms"] = {
+            "mean": round(h.mean() * 1e3, 3),
+            "p50": round(h.percentile(50) * 1e3, 3),
+            "p95": round(h.percentile(95) * 1e3, 3),
+            "p99": round(h.percentile(99) * 1e3, 3),
+            "max": round(h.max * 1e3, 3),
+        }
+        if by_class:
+            merged["key_class_latency"] = {
+                c: {"n": ch.count,
+                    "p50_ms": round(ch.percentile(50) * 1e3, 3),
+                    "p99_ms": round(ch.percentile(99) * 1e3, 3)}
+                for c, ch in by_class.items()}
+        steps.append(merged)
+    achieved = [s["achieved_ops_s"] for s in steps]
+    peak = max(range(len(steps)), key=lambda i: achieved[i])
+    anomalies = None if args.no_lin else sum(
+        r["anomalies"] or 0 for r in reports)
+    return {
+        "mode": "open-loop",
+        "gen_procs": n,
+        "conns_per_gen": args.conns,
+        "W": args.W, "K": args.K,
+        "steps": steps,
+        "peak_ops_s": achieved[peak],
+        "peak_offered_ops_s": steps[peak]["offered_ops_s"],
+        "total_completed": sum(s["completed"] for s in steps),
+        "total_errors": sum(s["errors"] for s in steps),
+        "total_shed": sum(s["shed"] for s in steps),
+        "anomalies": anomalies,
+        "history_ops": sum(r["history_ops"] for r in reports),
+    }
+
+
+async def _closed_loop(args, cfg) -> dict:
+    from paxi_tpu_torch.core.config import Bconfig
+    from paxi_tpu_torch.host.benchmark import Benchmark
+    cfg.benchmark = Bconfig(T=args.T, K=args.K, W=args.W,
+                            concurrency=args.concurrency,
+                            warmup=args.warmup,
+                            linearizability_check=not args.no_lin)
+    wl = None
+    if args.workload:
+        from paxi_tpu_torch.workload import named_workload
+        wl = named_workload(args.workload)
+    bench = Benchmark(cfg, cfg.benchmark, seed=args.seed, workload=wl)
+    stats = await bench.run()
+    return dict(stats.summary(), mode="closed-loop")
+
+
+def cmd_repl(args) -> int:
+    """Interactive admin REPL (bin/cmd): get/put/crash/drop/slow/flaky."""
+    cfg = _load_config(args)
+    from paxi_tpu_torch.host.client import AdminClient, Client
+
+    async def main():
+        client = Client(cfg, id=args.id or None, client_id="cmd")
+        admin = AdminClient(cfg)
+        print("commands: get K | put K V | crash ID T | drop ID1 ID2 T | "
+              "slow ID1 ID2 MS T | flaky ID1 ID2 P T | exit")
+        loop = asyncio.get_running_loop()
+        while True:
+            try:
+                line = await loop.run_in_executor(None, input, "paxi> ")
+            except (EOFError, KeyboardInterrupt):
+                break
+            parts = line.split()
+            if not parts:
+                continue
+            try:
+                op = parts[0]
+                if op == "exit":
+                    break
+                elif op == "get":
+                    print((await client.get(int(parts[1]))).decode("latin1"))
+                elif op == "put":
+                    await client.put(int(parts[1]), parts[2].encode())
+                    print("ok")
+                elif op == "crash":
+                    await admin.crash(parts[1], float(parts[2]))
+                    print("ok")
+                elif op == "drop":
+                    await admin.drop(parts[1], parts[2], float(parts[3]))
+                    print("ok")
+                elif op == "slow":
+                    await admin.slow(parts[1], parts[2], float(parts[3]),
+                                     float(parts[4]))
+                    print("ok")
+                elif op == "flaky":
+                    await admin.flaky(parts[1], parts[2], float(parts[3]),
+                                      float(parts[4]))
+                    print("ok")
+                else:
+                    print(f"unknown command {op!r}")
+            except Exception as e:  # REPL: report, keep going
+                print(f"error: {e}")
+        client.close()
+        admin.close()
+    asyncio.run(main())
+    return 0
 
 
 def cmd_sim(args) -> int:
@@ -335,14 +758,14 @@ def cmd_workload(args) -> int:
 
 
 def cmd_metrics(args) -> int:
-    """``--series``: run the sim and export the per-step counter time
-    series (JSON, or CSV with ``-csv``).  Reading a live host node or a
-    host artifact stays in the JAX package."""
+    """Pretty-print a metrics snapshot from either source: scrape a live
+    host node's /metrics endpoint (``-url``), or pull the snapshots
+    embedded in a JSON artifact (``-file``: BENCH_HOST.json,
+    FUZZ_SOAK.json, ...).  With ``--series``, run the sim instead and
+    export the per-step counter time series (JSON, or CSV with
+    ``-csv``)."""
     if not args.series:
-        print("metrics: only --series is ported (the live /metrics scrape "
-              "and the artifact walk read host output: python -m paxi_tpu "
-              "metrics)", file=sys.stderr)
-        return 2
+        return _metrics_snapshots(args)
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.sim import FuzzConfig, SimConfig, simulate
     proto = sim_protocol(args.algorithm)
@@ -390,6 +813,127 @@ def cmd_metrics(args) -> int:
             f.write(text)
     else:
         sys.stdout.write(text)
+    return 0
+
+
+def _find_snapshots(doc, out) -> None:
+    """Walk a JSON document for metric payloads: registry snapshots
+    ({"counters": [...], "histograms": [...]}) and the sim runtime's
+    plain counter dicts ({"counters": {name: int}})."""
+    if isinstance(doc, dict):
+        c = doc.get("counters")
+        if isinstance(c, list) or isinstance(doc.get("histograms"), list):
+            out.append({"counters": c if isinstance(c, list) else [],
+                        "histograms": doc.get("histograms", [])})
+            return
+        if isinstance(c, dict):
+            out.append({"counters": [
+                {"name": f"net_{k}", "labels": {}, "value": int(v)}
+                for k, v in c.items()], "histograms": []})
+            doc = {k: v for k, v in doc.items() if k != "counters"}
+        for v in doc.values():
+            _find_snapshots(v, out)
+    elif isinstance(doc, list):
+        for v in doc:
+            _find_snapshots(v, out)
+
+
+def _metrics_snapshots(args) -> int:
+    import urllib.request
+
+    from paxi_tpu_torch.metrics import merge_snapshots, pretty
+
+    if args.url:
+        base = args.url.rstrip("/")
+        if args.raw:
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                sys.stdout.write(r.read().decode())
+            return 0
+        with urllib.request.urlopen(base + "/metrics?format=json",
+                                    timeout=10) as r:
+            snaps = [json.load(r)]
+    else:
+        if not args.file:
+            print("metrics: need -url or -file", file=sys.stderr)
+            return 2
+        with open(args.file) as f:
+            doc = json.load(f)
+        snaps = []
+        _find_snapshots(doc, snaps)
+        if not snaps:
+            print(f"metrics: no snapshots found in {args.file}",
+                  file=sys.stderr)
+            return 1
+    print(pretty(merge_snapshots(snaps)))
+    return 0
+
+
+def _find_spans(doc, out) -> None:
+    """Collect every span list in a JSON document: a raw ``[{span},
+    ...]`` dump, a ``{"spans": [...]}`` scrape, or an artifact embedding
+    one."""
+    if isinstance(doc, dict):
+        s = doc.get("spans")
+        if (isinstance(s, list)
+                and all(isinstance(d, dict) and "sid" in d for d in s)):
+            out.append(s)
+            doc = {k: v for k, v in doc.items() if k != "spans"}
+        for v in doc.values():
+            _find_spans(v, out)
+    elif isinstance(doc, list):
+        if doc and all(isinstance(d, dict) and "sid" in d
+                       and "trace" in d for d in doc):
+            out.append(doc)
+        else:
+            for v in doc:
+                _find_spans(v, out)
+
+
+def cmd_spans(args) -> int:
+    """Span timelines: render (ASCII) or export (Chrome trace-event JSON
+    for chrome://tracing / Perfetto).  ``-url`` scrapes a node's ``GET
+    /spans``; ``-file`` reads a JSON artifact and collects every span
+    list inside it."""
+    import urllib.request
+
+    from paxi_tpu_torch.obs import (ascii_timeline, chrome_trace, merge,
+                                    orphans, stitched_traces,
+                                    validate_spans)
+
+    if args.url:
+        base = args.url.rstrip("/")
+        with urllib.request.urlopen(base + "/spans", timeout=10) as r:
+            lists = [json.load(r)["spans"]]
+    else:
+        if not args.file:
+            print("spans: need -url or -file", file=sys.stderr)
+            return 2
+        with open(args.file) as f:
+            doc = json.load(f)
+        lists = []
+        _find_spans(doc, lists)
+        if not lists:
+            print(f"spans: no span lists found in {args.file}",
+                  file=sys.stderr)
+            return 1
+    spans = merge(lists)
+    errs = validate_spans(spans)
+    if errs:
+        print("spans: schema violations:\n  " + "\n  ".join(errs[:20]),
+              file=sys.stderr)
+        return 1
+    if args.spans_cmd == "export":
+        text = json.dumps(chrome_trace(spans), indent=1)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(text)
+        else:
+            sys.stdout.write(text + "\n")
+        return 0
+    sys.stdout.write(ascii_timeline(spans, width=args.width))
+    print(f"{len(spans)} spans, "
+          f"{len(stitched_traces(spans))} stitched traces, "
+          f"{len(orphans(spans))} orphans")
     return 0
 
 
@@ -483,8 +1027,131 @@ def cmd_lint(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="paxi_tpu_torch",
-        description="the paxi_tpu sim runtime on PyTorch and CUDA")
+        description="the paxi_tpu sim and host runtimes on PyTorch and CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("-config", "--config", default="")
+        sp.add_argument("-n", type=int, default=3,
+                        help="replicas for the default local config")
+        sp.add_argument("-zones", "--zones", type=int, default=1)
+        # empty default: log.configure falls back to $PAXI_LOG_LEVEL
+        sp.add_argument("-log_level", "--log-level", dest="log_level",
+                        default="")
+        sp.add_argument("-log_dir", "--log-dir", dest="log_dir", default="")
+
+    s = sub.add_parser("server", help="run one replica (or -simulation)")
+    common(s)
+    s.add_argument("-id", "--id", default="1.1")
+    s.add_argument("-algorithm", "--algorithm", default="paxos")
+    s.add_argument("-simulation", "--simulation", action="store_true")
+    s.set_defaults(fn=cmd_server)
+
+    c = sub.add_parser("client", help="closed-loop benchmark client")
+    common(c)
+    c.add_argument("-id", "--id", default="")
+    c.add_argument("-T", type=int, default=None)
+    c.add_argument("-N", type=int, default=None)
+    c.add_argument("-concurrency", type=int, default=0)
+    c.add_argument("-seed", type=int, default=0)
+    c.add_argument("-history_file", "--history-file", default="")
+    c.set_defaults(fn=cmd_client)
+
+    bh = sub.add_parser(
+        "bench-host",
+        help="host-serving benchmark: closed-loop or --open-loop "
+             "saturation ramp")
+    common(bh)
+    bh.add_argument("-algorithm", "--algorithm", default="paxos")
+    bh.add_argument("-open_loop", "--open-loop", dest="open_loop",
+                    action="store_true",
+                    help="Poisson arrivals over pipelined connections, "
+                         "ramped across -rates")
+    bh.add_argument("-cluster_proc", "--cluster-proc",
+                    dest="cluster_proc", action="store_true",
+                    help="run the cluster in a subprocess (load "
+                         "generator and replicas stop sharing a GIL)")
+    bh.add_argument("-rates", "--rates",
+                    default="1000,2000,5000,10000,20000,40000,60000",
+                    help="comma-separated offered-load ramp (ops/s)")
+    bh.add_argument("-step_s", "--step-s", dest="step_s", type=float,
+                    default=3.0, help="seconds per rate step")
+    bh.add_argument("-conns", "--conns", type=int, default=4,
+                    help="pipelined connections (open loop)")
+    bh.add_argument("-max_inflight", "--max-inflight",
+                    dest="max_inflight", type=int, default=4096,
+                    help="open-loop in-flight command cap (beyond it "
+                         "arrivals shed, counted)")
+    bh.add_argument("-ops_per_req", "--ops-per-req", dest="ops_per_req",
+                    type=int, default=1,
+                    help="client-side command batching: KV commands "
+                         "per HTTP request over the Transaction "
+                         "surface (1 = plain per-op REST)")
+    bh.add_argument("-T", type=int, default=4,
+                    help="closed-loop run seconds")
+    bh.add_argument("-concurrency", type=int, default=4)
+    bh.add_argument("-warmup", "--warmup", type=float, default=1.0,
+                    help="closed-loop warmup window (excluded from "
+                         "steady-state ops/s)")
+    bh.add_argument("-W", type=float, default=0.5,
+                    help="write fraction")
+    bh.add_argument("-K", type=int, default=1024,
+                    help="key-space size")
+    bh.add_argument("-seed", type=int, default=0)
+    bh.add_argument("-no_lin", "--no-lin", dest="no_lin",
+                    action="store_true",
+                    help="skip the linearizability history/check")
+    bh.add_argument("-batch_size", "--batch-size", dest="batch_size",
+                    type=int, default=64,
+                    help="commit-path batch ceiling (cfg.batch_size)")
+    bh.add_argument("-batch_wait", "--batch-wait", dest="batch_wait",
+                    type=float, default=0.0,
+                    help="batch flush-timer ceiling in seconds "
+                         "(0 = next event-loop tick)")
+    bh.add_argument("-leader_reads", "--leader-reads",
+                    dest="leader_reads", action="store_true",
+                    help="serve reads at the leader's execute barrier "
+                         "instead of log slots (read-index mode; the "
+                         "linearizability checker still gates the run)")
+    bh.add_argument("-base_port", "--base-port", dest="base_port",
+                    type=int, default=1735)
+    bh.add_argument("-out", "--out", default="",
+                    help="write the full artifact (with cluster "
+                         "metrics) to this JSON file")
+    bh.add_argument("-gen_procs", "--gen-procs", dest="gen_procs",
+                    type=int, default=1,
+                    help="parallel generator subprocesses (load and "
+                         "key space split evenly; implies "
+                         "--cluster-proc)")
+    bh.add_argument("-attach", "--attach", action="store_true",
+                    help="generator-worker mode: drive an already-"
+                         "running cluster (used by -gen-procs)")
+    bh.add_argument("-key_base", "--key-base", dest="key_base",
+                    type=int, default=0, help="key-range offset")
+    bh.add_argument("-client_tag", "--client-tag", dest="client_tag",
+                    default="ol", help="client-id prefix")
+    bh.add_argument("-workload", "--workload", default="",
+                    help="drive the load with a named workload spec "
+                         "(zipf99, flash, hotrange, ...) instead of "
+                         "uniform keys")
+    bh.add_argument("-wl_stream", "--wl-stream", dest="wl_stream",
+                    type=int, default=0,
+                    help="workload sampler stream id (parallel workers "
+                         "get distinct streams automatically)")
+    bh.add_argument("-shards", "--shards", type=int, default=0,
+                    help="sharded mode (the JAX package's shard/): not "
+                         "ported yet, exits 2")
+    bh.add_argument("-trace_sample", "--trace-sample",
+                    dest="trace_sample", type=float, default=0.0,
+                    help="span sampling rate 0..1 (0 = tracing off); "
+                         "adds the five-phase latency decomposition "
+                         "(span_phases) to the artifact")
+    bh.set_defaults(fn=cmd_bench_host)
+
+    r = sub.add_parser("cmd", help="admin REPL")
+    common(r)
+    r.add_argument("-id", "--id", default="")
+    r.set_defaults(fn=cmd_repl)
 
     m = sub.add_parser("sim", help="sim runtime (batched fuzzing)")
     m.add_argument("-algorithm", "--algorithm", default="paxos")
@@ -641,7 +1308,15 @@ def build_parser() -> argparse.ArgumentParser:
     wp.set_defaults(fn=cmd_workload)
 
     me = sub.add_parser("metrics",
-                        help="the sim's per-step counter series (--series)")
+                        help="pretty-print metrics (live node or "
+                             "artifact), or the sim's per-step counter "
+                             "series (--series)")
+    me.add_argument("-url", "--url", default="",
+                    help="a node's HTTP base, e.g. http://127.0.0.1:2735")
+    me.add_argument("-file", "--file", default="",
+                    help="a JSON artifact with embedded snapshots")
+    me.add_argument("-raw", "--raw", action="store_true",
+                    help="with -url: dump the Prometheus text unparsed")
     me.add_argument("-series", "--series", action="store_true",
                     help="run the sim and export the per-step counter "
                          "time series")
@@ -659,6 +1334,25 @@ def build_parser() -> argparse.ArgumentParser:
     me.add_argument("-max_delay", type=int, default=1)
     _device_arg(me)
     me.set_defaults(fn=cmd_metrics)
+
+    sp = sub.add_parser("spans",
+                        help="span timelines: ASCII render or Chrome "
+                             "trace-event export")
+    spsub = sp.add_subparsers(dest="spans_cmd", required=True)
+    for name, desc in (("render", "ASCII timeline per trace"),
+                       ("export", "Chrome trace-event JSON "
+                                  "(chrome://tracing / Perfetto)")):
+        ssp = spsub.add_parser(name, help=desc)
+        ssp.add_argument("-url", "--url", default="",
+                         help="a node's HTTP base (scrapes GET /spans)")
+        ssp.add_argument("-file", "--file", default="",
+                         help="a JSON artifact with embedded span "
+                              "lists (scrape dump, bench artifact)")
+        ssp.add_argument("-out", "--out", default="",
+                         help="write output here instead of stdout")
+        ssp.add_argument("-width", "--width", type=int, default=48,
+                         help="render: bar width in characters")
+    sp.set_defaults(fn=cmd_spans)
 
     li = sub.add_parser(
         "lint", help="protocol-aware static analysis of the port's kernels "

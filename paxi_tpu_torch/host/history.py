@@ -17,11 +17,10 @@ benchmark writes ``client_id:command_id`` payloads so this holds):
    cycle and recounts, so the result is "number of non-linearizable
    reads", matching the reference's anomaly count.
 
-The JAX package sends histories of 32 or more operations per key to a
-C++ checker of the same algorithm (``native/lincheck.cpp``, same
-answers); the port runs this pure-Python algorithm at every size until
-the native loader is ported.  Its vectorized stale-read variant for big
-sim histories (``sim/lincheck.py``) is not ported yet either.
+Histories of 32 or more operations per key go to a C++ checker of the
+same algorithm (``host/csrc/lincheck.cpp`` through ``host/native.py``,
+same answers).  The JAX package's vectorized stale-read variant for big
+sim histories (``sim/lincheck.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,9 +86,16 @@ class History:
 
 
 def check_key(ops: List[Operation]) -> int:
-    """Anomalous-read count for one key's operations (module
-    docstring)."""
+    """Anomalous-read count for one key's operations (module docstring).
+
+    Large histories go through the native checker (host/native.py, same
+    algorithm; ~50x faster); small ones and the fallback stay here."""
     ops = sorted(ops, key=lambda o: (o.start, o.end))
+    if len(ops) >= 32:
+        from paxi_tpu_torch.host.native import check_key_native
+        r = check_key_native(ops)
+        if r is not None:
+            return r
     anomalies = 0
     while True:
         bad = _find_cycle_read(ops)

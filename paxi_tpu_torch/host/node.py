@@ -1,4 +1,4 @@
-"""The host-runtime node: message loop and handler dispatch.
+"""The host-runtime node: message loop, handler dispatch, HTTP API.
 
 Reference: paxi node.go — ``Node`` embeds Socket + Database + an HTTP
 server; ``Register(msgType, handler)`` stores handlers keyed by message
@@ -11,11 +11,6 @@ reply back to the origin's HTTP client.
 The goroutine-per-node model becomes one asyncio task per node, so any
 number of nodes share one process/event loop — which is exactly the
 reference's ``-simulation`` mode when the config uses chan:// addresses.
-
-The JAX package's node also serves the client REST API (``host/http.py``);
-the port's does not yet: a node whose id has an HTTP address refuses to
-start (``NotImplementedError``) until the serving slice (``host/http.py``,
-``client.py``, ``benchmark.py``) lands.
 """
 
 from __future__ import annotations
@@ -34,15 +29,10 @@ from paxi_tpu_torch.core.db import Database
 from paxi_tpu_torch.core.ident import ID
 from paxi_tpu_torch.host.batch import BatchBuffer
 from paxi_tpu_torch.host.codec import Codec, register_message
+from paxi_tpu_torch.host.http import HTTPServer
 from paxi_tpu_torch.host.socket import Socket
 from paxi_tpu_torch.metrics import Registry
 from paxi_tpu_torch.obs import SpanCollector
-
-HTTP_NOT_PORTED = (
-    "the port's host runtime serves no HTTP yet: the client REST API "
-    "(host/http.py, client.py, benchmark.py, the server and client "
-    "commands) waits for the serving slice; run the cluster with "
-    "http=False on the virtual-clock fabric")
 
 
 @register_message
@@ -95,8 +85,8 @@ class Node:
                  fabric=None):
         self.id = ID(id)
         self.cfg = cfg
-        # one registry per node, shared with the socket (the JAX
-        # package's node serves it as GET /metrics; metrics/)
+        # one registry per node, shared with the socket, exported by the
+        # node's HTTP server as GET /metrics (metrics/)
         self.metrics = Registry(node=str(self.id))
         # per-message-type handles resolved once: the recv loop is THE
         # hot path and must not pay a labeled registry lookup per message
@@ -107,12 +97,13 @@ class Node:
         self.socket = Socket(self.id, cfg, codec, metrics=self.metrics,
                              fabric=fabric)
         # per-node span ring (obs/): clocked by the socket's
-        # resolved fabric under replay, perf_counter live; the replay
-        # merges every node's export into one timeline
+        # resolved fabric under replay, perf_counter live; exported as
+        # GET /spans next to the registry's GET /metrics
         self.spans = SpanCollector(node=str(self.id),
                                    fabric=self.socket.fabric)
         self.db = Database(cfg.multi_version)
         self.handles: Dict[type, Callable[[Any], None]] = {}
+        self.http: Optional[HTTPServer] = None
         # resolved once: handle_client_request is on the per-op hot path
         self._client_reqs_total = self.metrics.counter(
             "paxi_client_requests_total")
@@ -132,9 +123,10 @@ class Node:
 
     # ---- lifecycle (node.go Run) ---------------------------------------
     async def start(self) -> None:
-        if self.id in self.cfg.http_addrs:
-            raise NotImplementedError(HTTP_NOT_PORTED)
         await self.socket.start()
+        if self.id in self.cfg.http_addrs:
+            self.http = HTTPServer(self)
+            await self.http.start()
         self._tasks.append(asyncio.create_task(self._recv_loop()))
 
     async def _recv_loop(self) -> None:
@@ -187,6 +179,8 @@ class Node:
     async def stop(self) -> None:
         for t in self._tasks:
             t.cancel()
+        if self.http:
+            await self.http.stop()
         await self.socket.close()
 
     def run_forever(self) -> None:

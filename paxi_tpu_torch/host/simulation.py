@@ -16,8 +16,7 @@ from paxi_tpu_torch.host.transport import reset_chan_fabric
 
 
 def chan_config(n: int, zones: int = 1, tag: str = "sim") -> Config:
-    """An n-replica config on the in-process fabric (+ local HTTP
-    addresses, which the port's nodes do not serve yet)."""
+    """An n-replica config on the in-process fabric (+ local HTTP)."""
     cfg = local_config(n, zones=zones, scheme="tcp")
     cfg.addrs = {i: f"chan://{tag}/{i}" for i in cfg.addrs}
     return cfg
@@ -29,21 +28,16 @@ class Cluster:
     ``fabric``: a virtual-clock fabric (host/fabric.py) to sequence all
     peer deliveries through — the trace-replay transport.  It is made
     ambient while the replicas are constructed, so unmodified protocol
-    factories (which only know ``(id, cfg)``) still wire into it.
-
-    ``http=True`` raises ``NotImplementedError``: the port's nodes serve
-    no client REST API until the serving slice (``host/http.py``)."""
+    factories (which only know ``(id, cfg)``) still wire into it."""
 
     def __init__(self, algorithm: str, cfg: Optional[Config] = None,
                  n: int = 3, zones: int = 1, http: bool = True,
                  fabric=None):
         from paxi_tpu_torch.host.fabric import use_fabric
-        from paxi_tpu_torch.host.node import HTTP_NOT_PORTED
         from paxi_tpu_torch.protocols import host_replica
-        if http:
-            raise NotImplementedError(HTTP_NOT_PORTED)
         self.cfg = cfg or chan_config(n, zones)
-        self.cfg.http_addrs = {}
+        if not http:
+            self.cfg.http_addrs = {}
         self.fabric = fabric
         new = host_replica(algorithm)
         if fabric is None:

@@ -13,11 +13,11 @@ The observability triangle this package completes:
 
 See span.py for the taxonomy and wire contract, sample.py for the
 head-sampling contract, collect.py for the write path, stitch.py for
-the read path.  The JAX package's ``render.py`` (ASCII and Chrome-trace
-output) is not ported yet.
+the read path, render.py for output.
 """
 
 from paxi_tpu_torch.obs.collect import SpanCollector
+from paxi_tpu_torch.obs.render import ascii_timeline, chrome_trace
 from paxi_tpu_torch.obs.sample import (Sampler, new_trace_id, process_sampler,
                                  sample_rate, set_sample_rate)
 from paxi_tpu_torch.obs.span import (KINDS, SCHEMA, TRACE_HEADER, TRACE_PROP,
@@ -30,7 +30,7 @@ from paxi_tpu_torch.obs.stitch import (PHASES, aggregate_phases, by_trace,
 __all__ = [
     "KINDS", "PHASES", "SCHEMA", "TRACE_HEADER", "TRACE_PROP",
     "Sampler", "Span", "SpanCollector", "TraceCtx",
-    "aggregate_phases", "by_trace",
+    "aggregate_phases", "ascii_timeline", "by_trace", "chrome_trace",
     "ctx_of", "first_ctx", "groups_of", "label_group", "merge",
     "new_trace_id", "orphans", "phases", "process_sampler",
     "sample_rate", "set_sample_rate", "stitched_traces", "trees",

@@ -26,9 +26,10 @@ protocol's (``trace/host.host_algorithm``).
 from __future__ import annotations
 
 import importlib
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
-from paxi_tpu_torch.sim.types import SimProtocol
+if TYPE_CHECKING:       # the host runtime resolves twins without torch
+    from paxi_tpu_torch.sim.types import SimProtocol
 
 _SIM_MODULES = {
     "paxos": "paxi_tpu_torch.protocols.paxos.sim",

@@ -22,6 +22,7 @@ twin's own ``TRACE_MSG_MAP`` (``protocols._HOST_MODULES``).
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import importlib
 from dataclasses import dataclass
@@ -406,3 +407,34 @@ def apply_immediate(cluster, dirs: Sequence[Directive]) -> None:
             _socket_of(cluster, d.src).delay_next(
                 d.dst, d.msg_type, d.delay_s, count=d.count,
                 skip=d.skip, key=d.key)
+
+
+async def _drive_windows(dirs: Sequence[Directive], apply) -> None:
+    """Open each windowed directive at its ``t0`` (relative to now) by
+    awaiting ``apply(directive, duration)``.  Returns once every window
+    has been opened (not when it expires)."""
+    timed = sorted((d for d in dirs
+                    if not isinstance(d, (DropMsg, DelayMsg))),
+                   key=lambda d: d.t0)
+    t_start = asyncio.get_running_loop().time()
+    for d in timed:
+        lag = d.t0 - (asyncio.get_running_loop().time() - t_start)
+        if lag > 0:
+            await asyncio.sleep(lag)
+        await apply(d, max(d.t1 - d.t0, 0.0))
+
+
+async def drive_admin(admin, dirs: Sequence[Directive]) -> None:
+    """Run the windowed directives of a schedule through a live
+    cluster's ``AdminClient`` HTTP surface (the soak harness path)."""
+    async def apply(d, dur):
+        if isinstance(d, CrashWin):
+            await admin.crash(d.id, dur)
+        elif isinstance(d, DropWin):
+            await admin.drop(d.src, d.dst, dur)
+        elif isinstance(d, SlowWin):
+            await admin.slow(d.src, d.dst, d.delay_s * 1000.0, dur)
+        elif isinstance(d, FlakyWin):
+            await admin.flaky(d.src, d.dst, d.p, dur)
+
+    await _drive_windows(dirs, apply)

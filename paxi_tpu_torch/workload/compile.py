@@ -20,9 +20,8 @@ compares on every device, so the words are held in int64 and masked; a
 product with a constant of 2**31 or more would pass 2**63, so such
 constants multiply in 16-bit halves (every partial product stays under
 2**48).  ``host_sampler`` is the same draw in Python ints, for a client
-that generates requests off the device; ``host_rates`` and
-``surge_steps`` belong to the JAX package's host runtime and are not
-ported.
+that generates requests off the device, and ``surge_steps``/``host_rates``
+lower a FlashCrowd onto the host generator's rate ramp.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -335,6 +334,35 @@ def host_sampler(wl: Workload, n_keys: int, stream: int = 0):
         return key, write, cls
 
     return sample
+
+
+def surge_steps(wl: Workload, n_steps: int) -> Tuple[bool, ...]:
+    """FlashCrowd window membership per host ramp step (``flash_on`` over
+    step indices 0..n_steps-1, in Python)."""
+    fl = wl.flash
+    if fl is None:
+        return tuple(False for _ in range(n_steps))
+    out = []
+    for t in range(n_steps):
+        if t < fl.start:
+            out.append(False)
+        elif fl.period > 0:
+            out.append((t - fl.start) % fl.period < fl.duration)
+        else:
+            out.append(t < fl.start + fl.duration)
+    return tuple(out)
+
+
+def host_rates(wl: Workload, rates: Sequence[float]) -> Tuple[float, ...]:
+    """The effective offered-rate ramp: surge steps multiply the target
+    rate by ``mult`` (the host half of the flash lowering; the Poisson
+    arrival process itself is the generator's)."""
+    fl = wl.flash
+    if fl is None:
+        return tuple(float(r) for r in rates)
+    on = surge_steps(wl, len(rates))
+    return tuple(float(r) * (fl.mult if s else 1.0)
+                 for r, s in zip(rates, on))
 
 
 # ---- SimConfig plumbing --------------------------------------------------

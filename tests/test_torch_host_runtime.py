@@ -146,9 +146,35 @@ def test_two_runtimes_keep_their_own_state():
 
 
 def test_http_serving_is_refused():
-    sim = mod("paxi_tpu_torch", "host.simulation")
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        sim.Cluster("paxos", n=3)
+    """Once a refusal pin, now its reverse: ``Cluster("paxos", n=3)``
+    serves the client REST API by default (``http=True``), and a PUT and
+    a GET over HTTP answer as the JAX package's cluster does."""
+    import _torch_serving as S
+
+    async def main(pkg):
+        sim = mod(pkg, "host.simulation")
+        c = sim.Cluster("paxos", n=3)
+        cfg = c.cfg
+        assert set(cfg.http_addrs) == set(cfg.ids)
+        # the chan peers stay; the HTTP addresses move to free ports
+        cfg.http_addrs = {i: f"http://127.0.0.1:{p}"
+                          for i, p in zip(cfg.ids, S.free_ports(3))}
+        await c.start()
+        try:
+            assert all(r.http is not None for r in c.replicas.values())
+            url = cfg.http_addrs[cfg.ids[0]]
+            put = b"PUT /3 HTTP/1.1\r\nContent-Length: 2\r\n" \
+                  b"Client-Id: t\r\nCommand-Id: 1\r\n\r\nok"
+            get = b"GET /3 HTTP/1.1\r\nContent-Length: 0\r\n" \
+                  b"Client-Id: t\r\nCommand-Id: 2\r\n\r\n"
+            return await S.raw_exchange(url, put + get, n_responses=2)
+        finally:
+            await c.stop()
+
+    got = S.run(main("paxi_tpu_torch"))
+    assert got == S.run(main("paxi_tpu"))
+    assert [b for _, _, b in got] == [b"", b"ok"]
+    assert [s for s, _, _ in got] == ["HTTP/1.1 200 OK"] * 2
 
 
 # ---- replay determinism (the fabric clock everywhere) ------------------------

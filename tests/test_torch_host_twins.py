@@ -79,25 +79,75 @@ def test_twin_module_data_equals_reference(name):
     assert got["trace_msg_map"] and got["messages"]
 
 
+# every module that registers wire classes in either package: the twins,
+# the node, the switch, both demo_hosts and the serving modules
+REGISTERING = ("host.node", "host.http", "host.client", "switchnet.switch",
+               "trace.demo_host", "scenarios.demo_host")
+
+
+def _codec_view(pkg):
+    codec = H.mod(pkg, "host.codec")
+    by_tag = {}
+    for cls, tag in codec._TAGS.items():
+        if not cls.__module__.startswith(pkg + "."):
+            continue
+        by_tag.setdefault(tag, set()).add(_rel(pkg, cls.__module__))
+        assert codec.registered(tag).__module__.startswith(pkg + "."), tag
+    return {t: sorted(ms) for t, ms in by_tag.items()}
+
+
+def codec_views():
+    """Both packages' tag -> module views, taken once each package has
+    imported the same registering modules: the fixed list, every host
+    twin, and every module the other package's view names (another test
+    file may have imported one of them in one package only)."""
+    for pkg in H.PKGS:
+        registry = importlib.import_module(f"{pkg}.protocols")
+        for module in registry._HOST_MODULES.values():
+            importlib.import_module(module)
+        for rel in REGISTERING:
+            importlib.import_module(f"{pkg}.{rel}")
+    named = {m for pkg in H.PKGS for ms in _codec_view(pkg).values()
+             for m in ms}
+    for pkg in H.PKGS:
+        for rel in sorted(named):
+            importlib.import_module(f"{pkg}.{rel}")
+    return {pkg: _codec_view(pkg) for pkg in H.PKGS}
+
+
 def test_codec_resolves_each_class_in_its_own_package():
     """Every twin imported in both packages: one tag per class name in
     each package (``Seq`` is the two demos' both), and each tag resolves
     to the same module of its own package as in the reference (classes
     that other test files register are left out)."""
-    views = {}
     for pkg in H.PKGS:
         for name in NEW_TWINS:
             host_module(pkg, name)
-        codec = H.mod(pkg, "host.codec")
-        by_tag = {}
-        for cls, tag in codec._TAGS.items():
-            if not cls.__module__.startswith(pkg + "."):
-                continue
-            by_tag.setdefault(tag, set()).add(_rel(pkg, cls.__module__))
-            assert codec.registered(tag).__module__.startswith(pkg + "."), tag
-        views[pkg] = {t: sorted(ms) for t, ms in by_tag.items()}
+    views = codec_views()
     assert views["paxi_tpu_torch"] == views["paxi_tpu"]
     assert views["paxi_tpu_torch"]["Accept"] == ["protocols.epaxos.host"]
+    assert views["paxi_tpu_torch"]["SwitchVote"] == ["switchnet.switch"]
+
+
+def test_codec_views_equal_after_a_jax_only_import():
+    """The order that once broke the comparison: a fresh interpreter
+    imports the JAX package's switchnet.switch (as
+    tests/test_switchpaxos_host.py does) before the views are taken."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = ("import paxi_tpu.switchnet.switch\n"
+            "import test_torch_host_twins as t\n"
+            "v = t.codec_views()\n"
+            "assert v['paxi_tpu_torch'] == v['paxi_tpu'], v\n"
+            "assert 'SwitchSnap' in v['paxi_tpu_torch']\n")
+    tests = Path(__file__).resolve().parent
+    r = subprocess.run([sys.executable, "-c", code], cwd=tests.parent,
+                       env={**__import__("os").environ,
+                            "PYTHONPATH": f"{tests}:{tests.parent}",
+                            "JAX_PLATFORMS": "cpu"},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 def _policy_run(pkg):

@@ -63,7 +63,11 @@ def test_files_found():
                    "host/simulation.py", "host/history.py",
                    "trace/demo_host.py", "protocols/paxos/host.py",
                    "switchnet/switch.py", "protocols/switchpaxos/host.py",
-                   "protocols/switchpaxos/nogap.py"):
+                   "protocols/switchpaxos/nogap.py",
+                   # serving
+                   "host/http.py", "host/client.py", "host/benchmark.py",
+                   "host/native.py", "obs/render.py", "bench_host.py",
+                   "soak_host.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
@@ -104,8 +108,9 @@ def test_host_registry_modules_are_in_the_port():
 
 
 def test_host_replay_loads_no_jax():
-    """The host replay path, imported alone, loads neither JAX nor the
-    JAX package (beyond what the interpreter had loaded at start)."""
+    """The host replay and serving paths, imported alone, load neither
+    JAX nor the JAX package (beyond what the interpreter had loaded at
+    start), and the native checker they use is the port's own build."""
     import subprocess
     import sys
     code = (
@@ -119,6 +124,14 @@ def test_host_replay_loads_no_jax():
         "[importlib.import_module(m) for m in _HOST_MODULES.values()]\n"
         "import paxi_tpu_torch.core.policy\n"
         "import paxi_tpu_torch.host.simulation, paxi_tpu_torch.obs\n"
+        "import paxi_tpu_torch.host.http, paxi_tpu_torch.host.client\n"
+        "import paxi_tpu_torch.host.benchmark, paxi_tpu_torch.host.native\n"
+        "import paxi_tpu_torch.obs.render, paxi_tpu_torch.bench_host\n"
+        "import paxi_tpu_torch.soak_host\n"
+        "from paxi_tpu_torch.host import native\n"
+        "assert native.native_available(), native.build_error\n"
+        "lib = native.library_path()\n"
+        "assert lib.parent.name == 'native' and lib.name != 'liblincheck.so'\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paxi_tpu'))\n"
         "assert not bad, bad\n")
