@@ -48,7 +48,7 @@ non-zero exit code and no result line:
    its saved file to the capture's state hash, counters and latency
    histogram, and the real wpaxos under the same schedule with 0
    violations; the same case at the hunt's 16 groups recorded on the card
-   and on the CPU (every plane equal), then shrunk on the card (10
+   and on the CPU (every plane equal), then shrunk on the card (4
    replays); wpaxos 3 x 3 under wan3z alone at 100,000 groups (bench_all's
    ``wpaxos_wan3z_geo``) with its zone-local and cross-zone latency; and
    the fuzzed paxos path resumed from a checkpoint (52 steps,
@@ -184,13 +184,31 @@ non-zero exit code and no result line:
    linearizable row 0 anomalies and 0 errors, dynamo and blockchain
    ``eventual``; ``python -m paxi_tpu_torch.soak_host`` on paxos at
    ``SOAK_HOST_T=4`` (0 anomalies); the sweep and the soak run in their
-   own processes beside the server and the client;
-   the native checker built,
+   own processes beside the server and the client, and the soak, whose
+   fault windows hold an op they catch for the 10 s request timeout (13
+   or 33 s a run, in both packages), goes on beside phase 15 and is read
+   after it; the native checker built,
    and on the client history's largest key equal to the pure-Python
    loop.  One line a row: ops/s, p50/p99, errors, anomalies, the card's
    ``nvidia-smi`` line and the host CPU's model (host figures); the
    phase must take under 45 s;
-15. the kernel summary line, the ``nvidia-smi`` line, and last the result
+15. the sharded tier (slice 16; asyncio on the card machine's CPU and the
+   stale-read checker's tensor code, no kernel, the launch counts read
+   0): ``python -m paxi_tpu_torch bench-host --shards 2 -shard_fleet 6
+   -shard_workers 2 -rates 300,800 -step_s 1.5 -K 64 -txns 4 -migrate
+   -routers 2`` as a process (the reference's shard smoke, with a
+   stateless secondary router), its artifact held to that smoke's
+   assertions (the disjoint, crossing and migrate phases each completing
+   ops, 0 anomalies, 2PC committed with 0 atomicity violations, router
+   forwards, the migration complete with keys installed and its
+   seeded-keys oracle clean, blip and steady p99 reported) and one
+   ``shard_row`` line (host figures); beside it one traced cross-shard
+   2PC on a virtual-clock fabric, stitched into one tree over both groups
+   with 0 orphans (``shard_spans``), and ``sim/lincheck``'s
+   ``stale_read_anomalies`` on the card at 100k groups x 16 ops, equal to
+   the CPU's, every planted stale, future and initial-value read found
+   (``sim_lincheck``); the phase must take under 25 s;
+16. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -455,8 +473,9 @@ PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
 # wpaxos_thinq1 under GEO3Z: p_drop 0.05 inside the wan3z zone-latency
 # matrix), captured and replayed at GROUPS, shrunk at the hunt's 16 groups
 WITNESS_CFG = hunt_cfg("wpaxos_thinq1", 9)
-# (the shrink's trials 40 until phase 14 came, 61 s on the card; 10 now)
-WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 10, 0.05
+# (the shrink's trials 40 until phase 14 came, 61 s on the card; 10 until
+# phase 15 came, 20.3 s; 4 now)
+WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 4, 0.05
 # bench_all.py's wpaxos_wan3z_geo row: wpaxos 3 x 3 under wan3z alone
 SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
 SCENARIO_STEPS = 100
@@ -620,6 +639,39 @@ SOAK_PROTOCOL = "paxos"
 # timeout (12.5-33 s a paxos run at 8 s); at 4 s the crash, drop and flaky
 # windows open under load and the leader crash (4.5 s) as it ends
 SOAK_SECONDS = 4
+SOAK_OUT = SERVING_DIR + "/SOAK_HOST.json"
+SOAK_WAIT_S = 120                    # the soak process's own time limit
+
+# phase 15, the sharded tier (slice 16): the reference's own shard smoke
+# (``scripts/verify.sh --shard``: two paxos groups of three behind the
+# router, the disjoint and crossing ramps, a live range migration, the
+# 2PC burst) with a stateless secondary router, a traced cross-shard 2PC
+# on a virtual-clock fabric, and the stale-read checker (``sim/lincheck``,
+# tensor code, no kernel) on the card against the CPU.  The ramp's rows
+# are host figures of the card's machine
+SHARD_DIR = SCRATCH_DIR + "/shard"
+SHARD_SECONDS = 25
+SHARD_FLEET, SHARD_ROUTERS = 6, 2
+SHARD_ARGV = ["bench-host", "--shards", "2", "-shard_fleet",
+              str(SHARD_FLEET), "-shard_workers", "2", "-rates", "300,800",
+              "-step_s", "1.5", "-K", "64", "-txns", "4", "-migrate",
+              "-routers", str(SHARD_ROUTERS)]
+# shard_ramp's layout: the groups' HTTP ports from the base, the primary
+# router 98 above it, each secondary one more
+SHARD_PORTS = [*range(SHARD_FLEET), *range(98, 98 + SHARD_ROUTERS)]
+SHARD_PHASES = ["disjoint", "crossing", "migrate"]
+# the checker at the sim's scale: seeded random histories of 16 ops in
+# 100k groups, and every LINCHECK_STRIDE-th group replaced by a planted
+# history with a known count: (key, is_read, val, start, end) rows
+LINCHECK_GROUPS, LINCHECK_OPS, LINCHECK_STRIDE = 100_000, 16, 997
+LINCHECK_PLANTED = {
+    "stale": ([(0, False, 7, 0, 1), (0, False, 8, 2, 3),
+               (0, True, 7, 4, 5)], 1),
+    "future": ([(0, True, 7, 0, 1), (0, False, 7, 2, 3)], 1),
+    "initial": ([(0, False, 7, 0, 1), (0, True, 0, 2, 3)], 1),
+    "clean": ([(0, False, 7, 0, 1), (0, True, 7, 2, 3),
+               (0, False, 8, 4, 5), (0, True, 8, 6, 7)], 0),
+}
 
 
 def scenario_host_line(algorithm: str, extra, rc: int, steps: int,
@@ -2767,14 +2819,20 @@ _NEXT_BASE = [10000]
 
 def free_base(n: int) -> int:
     """A base port whose ``n`` peer ports and ``n`` HTTP ports (1000
-    above, ``local_config``'s layout) are free and below the ephemeral
-    range, never one handed out before in this run (a process started a
-    moment ago may not have bound its ports yet)."""
+    above, ``local_config``'s layout) are free (``free_block``)."""
+    return free_block([d + k for d in (0, 1000) for k in range(n)])
+
+
+def free_block(offsets) -> int:
+    """A base port whose ports ``base + o`` are free and below the
+    ephemeral range, never one handed out before in this run (a process
+    started a moment ago may not have bound its ports yet)."""
     import socket
-    top = max(ephemeral_low() - 1000 - n, _NEXT_BASE[0] + 1)
+    near = max(o for o in offsets if o < 1000)
+    top = max(ephemeral_low() - 1 - max(offsets), _NEXT_BASE[0] + 1)
     for base in range(_NEXT_BASE[0], top, 97):
         ok = True
-        for port in [base + d + k for d in (0, 1000) for k in range(n)]:
+        for port in [base + o for o in offsets]:
             with socket.socket() as sk:
                 try:
                     sk.bind(("127.0.0.1", port))
@@ -2783,7 +2841,7 @@ def free_base(n: int) -> int:
             if not ok:
                 break
         if ok:
-            _NEXT_BASE[0] = base + 97
+            _NEXT_BASE[0] = base + 97 * (1 + near // 97)
             return base
     fail("serving: no free port block below the ephemeral range")
     return 0
@@ -3058,34 +3116,66 @@ def serving_phase(smi: str):
     """Phase 14: the serving stack on the card's machine (asyncio on the
     CPU; no kernel runs, the launch counts read 0).  The soak and the
     bench_host sweep run in their own processes beside the server, the
-    client and bench-host.  Returns the launch counts."""
+    client and bench-host; the soak goes on beside phase 15 and is read
+    after it (``soak_phase``).  Returns the launch counts and the soak's
+    process."""
     import shutil
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
     os.makedirs(SERVING_DIR)
     host = {"device": smi, "cpu": cpu_model(), "figures": "host"}
     reset_launch_counts()
     t0 = time.perf_counter()
-    soak_out = SERVING_DIR + "/SOAK_HOST.json"
     soak = start_module(
         "paxi_tpu_torch.soak_host",
         ["--protocols", SOAK_PROTOCOL, "--base-port", str(free_base(3)),
-         "--out", soak_out], env={"SOAK_HOST_T": str(SOAK_SECONDS)})
+         "--out", SOAK_OUT], env={"SOAK_HOST_T": str(SOAK_SECONDS)})
     twin = start_bench_host_twin()
     try:
         history_path = serve_and_client_phase(host)
         bench_host_cli_phase(host)
         native_check_phase(history_path)
         bench_host_twin_phase(twin, host)
-        rc, soak_stdout, soak_stderr = finish_module(soak, 120)
+    except BaseException:
+        end_processes(soak)
+        raise
     finally:
-        for proc in (soak, twin):
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=10)
+        end_processes(twin)
+    launches = launch_counts()
+    seconds = time.perf_counter() - t0
+    log("serving_phase " + json.dumps({"seconds": seconds,
+                                       "kernels": launches}))
+    if any(launches.values()):
+        end_processes(soak)
+        fail(f"the serving phase launched kernels: {launches}")
+    if seconds > SERVING_SECONDS:
+        end_processes(soak)
+        fail(f"serving took {seconds:.1f} s, over {SERVING_SECONDS} s")
+    return launches, soak
+
+
+def end_processes(*procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def soak_phase(soak: subprocess.Popen, smi: str) -> None:
+    """The paxos soak started in phase 14, read after phase 15: exit 0,
+    0 anomalies, ops done.  Its fault windows hold an op they catch for
+    the server's 10 s request timeout, so a run takes 13 or 33 s (both
+    packages; 1 run in 5 the longer, with 4 errors) and is read where it
+    has had that time."""
+    host = {"device": smi, "cpu": cpu_model(), "figures": "host"}
+    t0 = time.perf_counter()
+    try:
+        rc, soak_stdout, soak_stderr = finish_module(soak, SOAK_WAIT_S)
+    finally:
+        end_processes(soak)
     if rc != 0:
         fail(f"soak_host {SOAK_PROTOCOL}: rc {rc}\n"
              f"{soak_stdout[-1000:]}\n{soak_stderr[-2000:]}")
-    with open(soak_out) as f:
+    with open(SOAK_OUT) as f:
         (row,) = json.load(f)
     if row["anomalies"] != 0 or row["ops"] <= 0:
         fail(f"soak_host {SOAK_PROTOCOL}: {row}")
@@ -3095,15 +3185,260 @@ def serving_phase(smi: str):
         "p99_ms": row["latency"]["latency_p99_ms"], "ops": row["ops"],
         "errors": row["errors"], "anomalies": row["anomalies"],
         "duration_s": row["duration_s"], "soak_host_t": SOAK_SECONDS,
+        "waited_after_phase_15_s": time.perf_counter() - t0,
         "fault_schedule": row["fault_schedule"]}, host)
+
+
+# ---- phase 15: the sharded tier ------------------------------------------
+
+def shard_ramp_check(r: dict) -> None:
+    """The shard smoke's assertions (``scripts/verify.sh --shard``) on
+    the ramp's artifact."""
+    required = ("mode", "algorithm", "shards", "fleet",
+                "replicas_per_group", "workers", "phases",
+                "aggregate_peak_ops_s", "anomalies", "txn", "router")
+    missing = [k for k in required if k not in r]
+    if missing:
+        fail(f"shard ramp: artifact missing keys {missing}")
+    names = [p["phase"] for p in r["phases"]]
+    mig = next((p for p in r["phases"] if p["phase"] == "migrate"), {})
+    m = mig.get("migration", {})
+    t = r["txn"] or {}
+    checks = [
+        (r["mode"] == "shard-ramp" and r["shards"] == 2, "mode/shards"),
+        (r.get("routers") == SHARD_ROUTERS, "routers"),
+        (names == SHARD_PHASES, f"phases {names}"),
+        (all(sum(s["completed"] for s in p["steps"]) > 0
+             for p in r["phases"]), "a phase completed nothing"),
+        ((r["anomalies"] or 0) == 0, f"anomalies {r['anomalies']}"),
+        (t.get("txns", 0) > 0 and t.get("committed", 0) > 0,
+         f"2PC {t}"),
+        (t.get("atomicity_violations") == 0, f"2PC atomicity {t}"),
+        (r["router"]["forwards"] > 0, f"router {r['router']}"),
+        (m.get("epoch") == "complete", f"migration epoch {m.get('epoch')}"),
+        ((m.get("installed") or 0) > 0, "migration installed no key"),
+        (m.get("oracle", {}).get("seeded_keys", 0) > 0
+         and m["oracle"]["clean"], f"migration oracle {m.get('oracle')}"),
+        (mig.get("steps", [{}])[0].get("completed", 0) > 0,
+         "migrate phase completed nothing"),
+        ((mig.get("anomalies") or 0) == 0,
+         f"migrate anomalies {mig.get('anomalies')}"),
+        ("migration_blip_p99_ms" in m and "blip_ratio" in m
+         and m.get("steady_p99_ms") is not None, "blip/steady p99"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        fail(f"shard ramp: {bad}")
+
+
+def shard_spans_phase() -> dict:
+    """One traced cross-shard 2PC on a virtual-clock fabric (the shard
+    smoke's ``--spans`` case): the coordinator's record spans and every
+    group's participant spans stitch into one tree over both groups, with
+    no orphan."""
+    import asyncio
+
+    from paxi_tpu_torch.core.command import Command, Request, pack_tpc
+    from paxi_tpu_torch.host.fabric import VirtualClockFabric
+    from paxi_tpu_torch.obs import (TRACE_PROP, SpanCollector, TraceCtx,
+                                    groups_of, label_group, merge, orphans,
+                                    stitched_traces)
+    from paxi_tpu_torch.shard import ShardCoordinator, ShardedCluster
+
+    async def twopc():
+        fab = VirtualClockFabric()
+        sc = ShardedCluster("paxos", groups=2, n=3, http=False, fabric=fab,
+                            tag="smoke2pc")
+        await sc.start()
+        try:
+            async def submit(group, key, rec):
+                # the router's /tpc hop on the fabric: a participant span
+                # on the entry node, its child context in the request
+                node = sc.leader_node(group)
+                sp = node.spans.start("tpc", TraceCtx.decode(
+                    rec.get("trace")), record=rec["kind"], txid=rec["txid"])
+                props = {TRACE_PROP: sp.child().encode()} if sp else {}
+                fut = asyncio.get_running_loop().create_future()
+
+                def cb(rep):
+                    node.spans.finish(sp)
+                    if not fut.done():
+                        fut.set_result((not rep.err, rep.value
+                                        or (rep.err or "").encode()))
+                node.handle_client_request(Request(
+                    command=Command(int(key), pack_tpc(
+                        rec["kind"], rec["txid"], ops=rec.get("ops"),
+                        outcome=rec.get("outcome", ""))),
+                    properties=props, reply_to=cb))
+                return await fut
+
+            col = SpanCollector(node="client", fabric=fab)
+            cspans = SpanCollector(node="coord", fabric=fab)
+            coord = ShardCoordinator(submit, lease_s=0.0, spans=cspans)
+            gsize = sc.map.span // 2
+            parts = {g: [(g * gsize + 7, f"t{g}".encode())]
+                     for g in range(2)}
+            root = col.start("txn", TraceCtx("t2pc"))
+            task = asyncio.ensure_future(coord.run_txn(
+                parts, txid="tx-smoke", trace=root.child()))
+            for _ in range(600):
+                if task.done():
+                    break
+                await fab.run(1)
+            if not task.done():
+                fail("traced 2PC: fabric steps exhausted")
+            out = task.result()
+            col.finish(root)
+            lists = [cspans.export(), col.export()]
+            for g in range(2):
+                lists.append(label_group(
+                    [d for r in sc.group(g).replicas.values()
+                     for d in r.spans.export()], g))
+            applied = [r.db.get(k) for g, ops in parts.items()
+                       for r in sc.group(g).replicas.values()
+                       for k, _ in ops]
+            return out, merge(lists), fab.step, applied
+        finally:
+            await sc.stop()
+
+    out, spans, steps, applied = asyncio.run(twopc())
+    lost = orphans(spans)
+    groups = sorted(groups_of(spans, "t2pc"))
+    row = {"committed": out.committed, "txid": out.txid,
+           "fabric_steps": steps, "spans": len(spans),
+           "trace_spans": sum(d["trace"] == "t2pc" for d in spans),
+           "kinds": sorted({d["kind"] for d in spans
+                            if d["trace"] == "t2pc"}),
+           "groups": groups, "orphans": len(lost),
+           "stitched": "t2pc" in stitched_traces(spans)}
+    log("shard_spans " + json.dumps(row))
+    if not out.committed or lost or not row["stitched"] \
+            or len(groups) < 2 or None in applied:
+        fail(f"traced 2PC: {row}, orphans {lost[:3]}, applied {applied}")
+    return row
+
+
+def lincheck_planes():
+    """Seeded random op planes of LINCHECK_GROUPS histories and the
+    planted groups' known counts."""
+    gen = torch.Generator().manual_seed(SEED)
+    shape = (LINCHECK_GROUPS, LINCHECK_OPS)
+    valid = torch.rand(shape, generator=gen) < 0.9
+    key = torch.randint(0, 4, shape, generator=gen, dtype=torch.int32)
+    is_read = torch.rand(shape, generator=gen) < 0.5
+    val = torch.randint(0, 6, shape, generator=gen, dtype=torch.int32)
+    start = torch.randint(0, 64, shape, generator=gen, dtype=torch.int32)
+    end = start + torch.randint(0, 8, shape, generator=gen,
+                                dtype=torch.int32)
+    planted, names = {}, sorted(LINCHECK_PLANTED)
+    for i, g in enumerate(range(1, LINCHECK_GROUPS, LINCHECK_STRIDE)):
+        rows, want = LINCHECK_PLANTED[names[i % len(names)]]
+        valid[g] = False
+        for j, (k, rd, v, s, e) in enumerate(rows):
+            valid[g, j], key[g, j], is_read[g, j] = True, k, rd
+            val[g, j], start[g, j], end[g, j] = v, s, e
+        planted[g] = want
+    return (valid, key, is_read, val, start, end), planted
+
+
+def lincheck_phase(smi: str) -> dict:
+    """``stale_read_anomalies`` on the card at LINCHECK_GROUPS x
+    LINCHECK_OPS against the same function on the CPU: equal counts,
+    every planted group's known count found."""
+    from paxi_tpu_torch.sim.lincheck import stale_read_anomalies
+    planes, planted = lincheck_planes()
+    t0 = time.perf_counter()
+    want = stale_read_anomalies(*planes, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dev = [p.to(DEVICE) for p in planes]
+    ms = median_ms(lambda: stale_read_anomalies(*dev, device=DEVICE))
+    got = stale_read_anomalies(*dev, device=DEVICE)
+    idx = torch.tensor(sorted(planted))
+    row = {"groups": LINCHECK_GROUPS, "ops": LINCHECK_OPS,
+           "device": got.device.type, "dtype": str(got.dtype),
+           "ms": ms, "cpu_ms": cpu_ms,
+           "max_abs_err": int((got.cpu() - want).abs().max()),
+           "anomalies": int(want.sum()),
+           "groups_with_anomalies": int((want > 0).sum()),
+           "planted": len(planted),
+           "planted_found": int((got.cpu()[idx] == torch.tensor(
+               [planted[g] for g in sorted(planted)],
+               dtype=torch.int32)).sum()),
+           "nvidia_smi": smi}
+    log("sim_lincheck " + json.dumps(row))
+    if got.device.type != torch.device(DEVICE).type \
+            or got.dtype != torch.int32 \
+            or not torch.equal(got.cpu(), want) \
+            or row["planted_found"] != len(planted):
+        fail(f"sim_lincheck: {row}")
+    return row
+
+
+def shard_row(r: dict, wall_s: float, host: dict) -> None:
+    """One line for the ramp: the aggregate peak, each phase's achieved
+    ops/s and p50/p99 by step, the 2PC counts, the migration, the router's
+    per-group command counts (host figures of the card's machine)."""
+    m = next(p for p in r["phases"] if p["phase"] == "migrate")["migration"]
+    log("shard_row " + json.dumps({
+        "argv": SHARD_ARGV, "aggregate_peak_ops_s": r["aggregate_peak_ops_s"],
+        "phases": {p["phase"]: [
+            {"offered_ops_s": s["offered_ops_s"],
+             "achieved_ops_s": s["achieved_ops_s"],
+             "p50_ms": s["latency_p50_ms"], "p99_ms": s["latency_p99_ms"],
+             "completed": s["completed"], "errors": s["errors"]}
+            for s in p["steps"]] for p in r["phases"]},
+        "anomalies": r["anomalies"], "txn": r["txn"],
+        "migration": {k: m[k] for k in (
+            "plan", "rebalancer_fallback", "installed", "chunks",
+            "window_s", "steady_p99_ms", "migration_blip_p99_ms",
+            "blip_ratio", "dualwrites", "map_version")},
+        "migration_oracle_clean": m["oracle"]["clean"],
+        "router_group_commands": r["router"]["group_commands"],
+        "router_forwards": r["router"]["forwards"],
+        "router_stale_reroutes": r["router"]["stale_reroutes"],
+        "routers": r.get("routers", 1), "wall_s": wall_s, **host}))
+
+
+def shard_phase(smi: str):
+    """Phase 15: the sharded tier on the card's machine.  ``bench-host
+    --shards 2`` runs as a process while this one traces a cross-shard
+    2PC on the fabric and holds the stale-read checker on the card to
+    the CPU; no kernel runs (the launch counts read 0).  Returns the
+    launch counts."""
+    import shutil
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    host = {"device": smi, "cpu": cpu_model(), "figures": "host"}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = SHARD_DIR + "/shard_ramp.json"
+    ramp = start_module("paxi_tpu_torch", SHARD_ARGV + [
+        "-base_port", str(free_block(SHARD_PORTS)), "-out", out])
+    try:
+        shard_spans_phase()
+        lincheck_phase(smi)
+        rc, stdout, stderr = finish_module(ramp, 120)
+    finally:
+        if ramp.poll() is None:
+            ramp.kill()
+            ramp.wait(timeout=10)
+    wall_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"bench-host --shards: rc {rc}\n{stdout[-2000:]}\n"
+             f"{stderr[-2000:]}")
+    with open(out) as f:
+        r = json.load(f)
+    shard_ramp_check(r)
+    shard_row(r, wall_s, host)
     launches = launch_counts()
     seconds = time.perf_counter() - t0
-    log("serving_phase " + json.dumps({"seconds": seconds,
-                                       "kernels": launches}))
+    log("shard_phase " + json.dumps({"seconds": seconds,
+                                     "kernels": launches}))
     if any(launches.values()):
-        fail(f"the serving phase launched kernels: {launches}")
-    if seconds > SERVING_SECONDS:
-        fail(f"serving took {seconds:.1f} s, over {SERVING_SECONDS} s")
+        fail(f"the sharded tier launched kernels: {launches}")
+    if seconds > SHARD_SECONDS:
+        fail(f"the sharded tier took {seconds:.1f} s, over "
+             f"{SHARD_SECONDS} s")
     return launches
 
 
@@ -3541,16 +3876,28 @@ def main() -> int:
     # metrics and spans scrapes, bench-host, the bench_host and soak_host
     # twins, the native checker (host figures; no kernel runs)
     t14 = time.perf_counter()
-    driver_launches["serving"] = serving_phase(smi)
+    driver_launches["serving"], soak = serving_phase(smi)
     t14 = time.perf_counter() - t14
+
+    # 15. the sharded tier: bench-host --shards 2 (two routers, a live
+    # migration, the 2PC burst) as a process, a traced cross-shard 2PC,
+    # the stale-read checker on the card against the CPU (no kernel runs)
+    t15 = time.perf_counter()
+    try:
+        driver_launches["sharded_tier"] = shard_phase(smi)
+    except BaseException:
+        end_processes(soak)
+        raise
+    t15 = time.perf_counter() - t15
+    soak_phase(soak, smi)
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
         "slice11_bench_and_sw_twins": t11, "sync_audit": t12,
-        "host_twins": t13, "serving": t14,
+        "host_twins": t13, "serving": t14, "sharded_tier": t15,
         "script_so_far": time.perf_counter() - t_script}))
 
-    # 15. the kernel summary: launches from the epaxos main path (the one
+    # 16. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]

@@ -12,6 +12,7 @@ the CPU, the client REST API of ``host/http.py``):
         the linearizability check)
     python -m paxi_tpu_torch cmd     (the admin REPL: get/put/crash/drop)
     python -m paxi_tpu_torch bench-host [--open-loop] [--cluster-proc]
+        [--shards G [-migrate] [-routers N]]
     python -m paxi_tpu_torch metrics -url URL | -file F [-raw] | --series
     python -m paxi_tpu_torch spans render|export -url URL | -file F
 
@@ -29,8 +30,9 @@ card by default, ``cpu`` to run on the CPU.  The host runtime (serving,
 replay) is asyncio Python on the CPU, as in the JAX package; it drives
 the host twin of every protocol (``protocols._HOST_MODULES``).
 ``lint`` is the port's paxi-lint (``paxi_tpu_torch/analysis``): pure AST,
-it needs no card.  ``bench-host --shards`` waits for the port of the
-JAX package's ``shard/`` and exits 2.
+it needs no card.  ``bench-host --shards G`` serves G consensus groups
+behind the shard router (``shard/``: the open-loop ramp, the 2PC burst
+and, with ``-migrate``, a live range migration).
 """
 
 from __future__ import annotations
@@ -126,10 +128,32 @@ def cmd_bench_host(args) -> int:
     from paxi_tpu_torch.host.transport import wait_listening
 
     if args.shards:
-        print("bench-host: --shards needs the sharded serving tier (the "
-              "JAX package's shard/, ROADMAP item 29), which the port "
-              "has not ported yet", file=sys.stderr)
-        return 2
+        # sharded multi-group serving (shard/): G groups of fleet/G
+        # replicas behind the router, the open-loop ramp in both
+        # key-range phases + the 2PC atomicity burst
+        from paxi_tpu_torch.shard.bench import shard_ramp
+        rates = [float(r) for r in args.rates.split(",") if r]
+        out = asyncio.run(shard_ramp(
+            algorithm=args.algorithm, shards=args.shards,
+            fleet=args.shard_fleet, workers=args.shard_workers,
+            rates=rates, step_s=args.step_s, K=args.K, W=args.W,
+            seed=args.seed, base_port=args.base_port,
+            txns=args.txns, lin=not args.no_lin, conns=args.conns,
+            proc=args.cluster_proc,
+            workload=getattr(args, "workload", ""),
+            migrate=getattr(args, "migrate", False),
+            routers=getattr(args, "routers", 1)))
+        print(json.dumps({k: v for k, v in out.items()
+                          if k != "phases"}))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        txn = out.get("txn") or {}
+        bad = ((out["anomalies"] or 0) > 0
+               or txn.get("atomicity_violations", 0) > 0
+               or all(s["completed"] == 0
+                      for p in out["phases"] for s in p["steps"]))
+        return 1 if bad else 0
 
     cfg = _load_config(args)
     if not args.config:
@@ -1139,8 +1163,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="workload sampler stream id (parallel workers "
                          "get distinct streams automatically)")
     bh.add_argument("-shards", "--shards", type=int, default=0,
-                    help="sharded mode (the JAX package's shard/): not "
-                         "ported yet, exits 2")
+                    help="sharded mode: run G consensus groups of "
+                         "shard_fleet/G replicas behind the shard "
+                         "router and ramp the open loop against the "
+                         "router endpoint (shard/)")
+    bh.add_argument("-shard_fleet", "--shard-fleet",
+                    dest="shard_fleet", type=int, default=12,
+                    help="total replicas partitioned over --shards "
+                         "groups")
+    bh.add_argument("-shard_workers", "--shard-workers",
+                    dest="shard_workers", type=int, default=4,
+                    help="parallel open-loop generator workers "
+                         "(disjoint-then-crossing key ranges)")
+    bh.add_argument("-txns", "--txns", type=int, default=8,
+                    help="cross-shard 2PC transactions fired after "
+                         "the ramp (atomicity oracle)")
+    bh.add_argument("-migrate", "--migrate", action="store_true",
+                    help="sharded mode: add a live-migration phase — "
+                         "hot-range traffic, a mid-phase Rebalancer "
+                         "split + streamed NON-EMPTY range move, and "
+                         "the migration_blip_p99_ms / readback-oracle "
+                         "evidence (shard/migrate.py)")
+    bh.add_argument("-routers", "--routers", type=int, default=1,
+                    help="sharded mode: router endpoints over the same "
+                         "groups (1 primary + N-1 stateless "
+                         "secondaries sharing the versioned map)")
     bh.add_argument("-trace_sample", "--trace-sample",
                     dest="trace_sample", type=float, default=0.0,
                     help="span sampling rate 0..1 (0 = tracing off); "

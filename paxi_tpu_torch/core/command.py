@@ -92,15 +92,13 @@ class Reply:
 
 
 TXN_MAGIC = b"\x00txn:"
-# cross-shard 2PC records (the JAX package's shard/txn.py, not ported
-# yet): prepare / decide /
+# cross-shard 2PC records (shard/txn.py): prepare / decide /
 # commit / abort ride the normal replication path as opaque command
 # values, so the PARTICIPANT LOG of a distributed transaction *is*
 # whatever consensus protocol the group runs — one ordered command per
 # 2PC state transition, interpreted by Database._execute_tpc.
 TPC_MAGIC = b"\x002pc:"
-# live data migration records (the JAX package's shard/migrate.py, not
-# ported yet): begin /
+# live data migration records (shard/migrate.py): begin /
 # read / install / start / cutover / done / drop ride each group's
 # ordered log exactly like 2PC records, so every epoch transition of a
 # range handoff is one totally-ordered log entry interpreted by

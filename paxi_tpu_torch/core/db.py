@@ -27,8 +27,8 @@ class Database:
         self._multi_version = multi_version
         self._lock = threading.RLock()
         self._version = 0
-        # cross-shard 2PC participant state (the JAX package's
-        # shard/txn.py, not ported yet): every replica of a group executes the same ordered prepare/
+        # cross-shard 2PC participant state (shard/txn.py):
+        # every replica of a group executes the same ordered prepare/
         # decide/commit/abort records, so these dicts evolve
         # deterministically across the group — the participant log IS
         # the group's consensus log.  ``_staged``: txid -> staged ops;
@@ -36,8 +36,8 @@ class Database:
         # coordinator-recovery tiebreak rides on log order).
         self._staged: Dict[str, list] = {}
         self._decided: Dict[str, str] = {}
-        # live-migration state (the JAX package's shard/migrate.py, not
-        # ported yet): evolves only through ordered ``mig`` records, so — like the 2PC
+        # live-migration state (shard/migrate.py): evolves
+        # only through ordered ``mig`` records, so — like the 2PC
         # dicts — it is identical at every replica of a group and
         # crash recovery is log replay.
         #   _mig_open: destination-side install windows, mid ->

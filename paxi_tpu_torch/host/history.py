@@ -19,8 +19,9 @@ benchmark writes ``client_id:command_id`` payloads so this holds):
 
 Histories of 32 or more operations per key go to a C++ checker of the
 same algorithm (``host/csrc/lincheck.cpp`` through ``host/native.py``,
-same answers).  The JAX package's vectorized stale-read variant for big
-sim histories (``sim/lincheck.py``) is not ported yet.
+same answers).  A vectorized stale-read variant of the same oracle for
+big sim histories, torch tensor code on the card, lives in
+``paxi_tpu_torch.sim.lincheck``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ Schedules: sustained loss with delay/reorder; duplication with deeper
 delay; flapping partitions with crash windows; a permanent leader-kill
 for the protocols with in-kernel recovery; plus the scenario engine's WAN
 geo-latency schedules for the zone-aware protocols.  The host-only shard
-fault grids of the reference stay there: the shard tier is not ported.
+fault grids (``SHARD_ROUTER_CASES``, ``SHARD_MIGRATION_CASES``) kill the
+sharded tier's coordinators (``shard/``) at scripted points on one
+virtual-clock fabric.
 """
 
 from __future__ import annotations
@@ -123,6 +125,59 @@ DEMO_CASES: List[Case] = [
      [GEO3Z], 16, 100, "committed_slots"),
     ("switchpaxos_nogap", SimConfig(n_replicas=5, n_slots=32),
      [DROP], 16, 80, "committed_slots"),
+]
+
+
+# ---- shard-router tier fault matrix (host-only) -------------------------
+# The shard tier (shard/) has no sim kernel, so its adversarial matrix
+# lives here as the canonical coordinator-kill grid instead of a
+# (protocol, FuzzConfig) row: each case kills the 2PC coordinator at a
+# scripted point mid-transaction, replays the groups' consensus
+# deliveries on ONE shared virtual-clock fabric (group ids are
+# zone-disjoint — see shard/cluster.py), runs coordinator recovery, and
+# the 2PC atomicity oracle must hold.
+# (kill_point, n_groups, replicas_per_group, seeds)
+ShardCase = Tuple[str, int, int, Tuple[int, ...]]
+SHARD_ROUTER_CASES: List[ShardCase] = [
+    # died with only the home group staged: recovery must abort the
+    # stragglers (presumed abort wins the decide race)
+    ("mid_prepare", 2, 3, (0, 1)),
+    # every group staged, no decision: recovery's decide(abort) wins
+    ("after_prepare", 2, 3, (0, 1)),
+    # decision durable in the home log, fan-out never started:
+    # recovery's decide(abort) LOSES and must complete the commit
+    ("after_decide", 2, 3, (0, 1)),
+    # partial commit fan-out: the home group applied, the rest must
+    # too (recovery completes, never re-aborts)
+    ("mid_commit", 2, 3, (0,)),
+]
+
+# ---- 2PC-recovery-during-live-migration matrix (host-only) --------------
+# The nastier grid: a range handoff (shard/migrate.py) is killed at a
+# scripted epoch WHILE a cross-shard transaction's coordinator also
+# dies mid-flight on the same shared fabric.  The migration is then
+# resumed by re-run AND 2PC recovery runs, in that order, and the
+# every-replica atomicity oracle must still hold — the fence/freeze
+# interplay (prepares vote no on a frozen range, cutover busy-waits on
+# staged txns, the post-cutover catch-up stream carries freeze-window
+# commits) is exactly the machinery these kills aim at.
+# (mig_kill_point, tpc_kill_point, n_groups, replicas_per_group, seeds)
+ShardMigrationCase = Tuple[str, str, int, int, Tuple[int, ...]]
+SHARD_MIGRATION_CASES: List[ShardMigrationCase] = [
+    # coordinator dies streaming the bulk snapshot; the txn dies fully
+    # staged: recovery aborts it, the resumed stream must not resurrect
+    # the aborted writes at dst
+    ("snapshot", "after_prepare", 2, 3, (0, 1)),
+    # fence committed (prepares on the range freeze), txn staged only
+    # at home: recovery's abort + resumed catch-up must converge
+    ("double_write", "mid_prepare", 2, 3, (0, 1)),
+    # decision durable, fan-out dead, range released: recovery must
+    # complete the commit THROUGH the moved range's new owner, and the
+    # resumed drain must carry the freeze-window commit to dst
+    ("double_write", "after_decide", 2, 3, (0, 1)),
+    # cutover committed, drain dead, partial commit fan-out: the
+    # resumed migration's final stream is what reconciles dst
+    ("cutover", "mid_commit", 2, 3, (0,)),
 ]
 
 

@@ -1,1 +1,2 @@
-"""Utilities of the host runtime: the leveled logger (``log``)."""
+"""Utilities of the host runtime: the leveled logger (``log``) and the
+graph and priority-queue helpers (``graph``)."""

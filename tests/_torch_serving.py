@@ -45,24 +45,38 @@ def _bindable(port):
 _NEXT = [0]
 
 
-def free_base(n):
-    """A base port with ``n`` free peer ports and ``n`` free HTTP ports
-    1000 above (``local_config``'s layout), away from the fixed blocks
-    the JAX package's tests use.  Each test worker takes bases from a
-    window of its own (``20000 + 1500 k`` to 400 above, k the xdist
-    worker's number mod 8), so no two workers' blocks overlap, HTTP
-    blocks included; within the window the bases move on from call to
-    call."""
+def _free_block(offsets):
+    """A base whose ports ``base + o`` are all free, from the worker's own
+    window (``20000 + 1500 k`` to 400 above, k the xdist worker's number
+    mod 8), the bases moving on from call to call."""
     worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
     lo = 20000 + 1500 * (int(worker[2:] or 0) % 8)
-    span = 400 - n
+    span = 400 - 1 - max(o for o in offsets if o < 1000)
     for _ in range(span):
         base = lo + _NEXT[0] % span
         _NEXT[0] += 7
-        if all(_bindable(base + d + k) for d in (0, 1000)
-               for k in range(n)):
+        if all(_bindable(base + o) for o in offsets):
             return base
     raise RuntimeError("no free port block")
+
+
+def free_base(n):
+    """A base port with ``n`` free peer ports and ``n`` free HTTP ports
+    1000 above (``local_config``'s layout), away from the fixed blocks
+    the JAX package's tests use.  No two workers' blocks overlap, HTTP
+    blocks included."""
+    return _free_block([d + k for d in (0, 1000) for k in range(n)])
+
+
+def free_shard_base(fleet, routers=1, runs=1, stride=40):
+    """A base port for a sharded cluster (``shard/cluster.py``'s layout):
+    its ``fleet`` group HTTP ports ``base..base+fleet-1`` and its routers
+    ``base+98 ..`` (``shard_ramp`` puts the primary there,
+    ``ShardedCluster`` by default one above), for ``runs`` clusters
+    ``stride`` apart (``bench_shard``), all free."""
+    return _free_block(sorted({r * stride + d for r in range(runs)
+                               for d in [*range(fleet),
+                                         *range(98, 100 + routers)]}))
 
 
 def serving_config(pkg, n=3, zones=1, tag="serve"):

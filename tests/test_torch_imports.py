@@ -67,7 +67,12 @@ def test_files_found():
                    # serving
                    "host/http.py", "host/client.py", "host/benchmark.py",
                    "host/native.py", "obs/render.py", "bench_host.py",
-                   "soak_host.py"):
+                   "soak_host.py",
+                   # the sharded tier, the stale-read checker, graph
+                   "shard/__init__.py", "shard/shardmap.py", "shard/txn.py",
+                   "shard/migrate.py", "shard/router.py", "shard/cluster.py",
+                   "shard/bench.py", "bench_shard.py", "sim/lincheck.py",
+                   "utils/graph.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
@@ -134,6 +139,30 @@ def test_host_replay_loads_no_jax():
         "assert lib.parent.name == 'native' and lib.name != 'liblincheck.so'\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paxi_tpu'))\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_shard_tier_loads_no_torch():
+    """The router, the cluster, the shard bench and the ``bench_shard``
+    twin start as fast as a server does: imported alone they load
+    neither torch nor JAX nor the JAX package (the ramp's workload phase
+    and ``sim/lincheck.py`` import torch, and neither is on this path)."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import paxi_tpu_torch.shard, paxi_tpu_torch.shard.router\n"
+        "import paxi_tpu_torch.shard.cluster, paxi_tpu_torch.shard.bench\n"
+        "import paxi_tpu_torch.shard.migrate, paxi_tpu_torch.shard.txn\n"
+        "import paxi_tpu_torch.bench_shard, paxi_tpu_torch.utils.graph\n"
+        "import paxi_tpu_torch.cli\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('torch', 'numpy', 'jax',\n"
+        "                                    'jaxlib', 'paxi_tpu'))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
