@@ -26,7 +26,7 @@ non-zero exit code and no result line:
    a state) at world 1 over every plane of an epaxos state of 100,000
    groups; CUDA-event times (median), bytes moved, the bound, and for the
    shift ``out.copy_(x)`` as the library yardstick;
-3. card against CPU: the same seed and a small shape (256 groups x 12
+3. card against CPU: the same seed and a small shape (256 groups x 8
    steps) run on both devices
    under a fault-free and a fuzzed schedule must give identical final
    state, metrics and violations, for paxos, epaxos, sdpaxos and wpaxos;
@@ -58,7 +58,7 @@ non-zero exit code and no result line:
    timed, and the shift's own path (every state rotated once around the
    ring by ``shift.many``, two launches a call, launch counts read around
    it); the sharded runs of paxos, sdpaxos and wpaxos
-   at 256 groups x 12 steps, fault-free and fuzzed, against the same
+   at 256 groups x 8 steps, fault-free and fuzzed, against the same
    sharded runs on four CPU ranks (identical gathered state, metrics and
    violations); ``dryrun_multichip``; and the sharded north star, paxos
    at 100,000 groups x 5 x 64 for 104 steps over the four ranks, which
@@ -74,7 +74,7 @@ non-zero exit code and no result line:
    kernel, against the lane-major run: equal kv planes and class counts
    under zipf99, both gated under flash); the time of the workload's hash
    planes at a step's shapes; every cell and paxos_pg card against CPU at
-   64 groups x 12 steps, fault-free and fuzzed; and, inside phase 6's
+   64 groups x 8 steps, fault-free and fuzzed; and, inside phase 6's
    spawn, the sharded zipf99 paxos (global group ids), a padded paxos_pg
    run of 257 groups and a sharded pinned replay of a paxos_pg capture,
    each against its one-device run on the card; phase 2 also times the
@@ -89,7 +89,7 @@ non-zero exit code and no result line:
    groups x 80 steps (a violating group found, one replay equal to the
    capture) and ``bpaxos_noread`` at 100,000 groups (it must violate; card
    against CPU at 16 groups); every new kernel and twin card against
-   CPU at 64 groups x 12 steps, fault-free and fuzzed; phase 2 also checks
+   CPU at 64 groups x 8 steps, fault-free and fuzzed; phase 2 also checks
    and times the exchange at the wankeeper (6 replicas, 9 types), bpaxos
    (7, 5 types) and blockchain (5, one type, wheel depth 2) mailboxes;
 9. switchpaxos and the demo kernels (slice 9): the exchange pair at the
@@ -106,7 +106,7 @@ non-zero exit code and no result line:
    100,000 x 80 under DROP (a violating group found, one replay equal),
    and the seqchurn row's own violation captured and replayed the same
    way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn
-   at 64 x 12,
+   at 64 x 8,
    nogap at 16 groups and the per-group ``fragile_counter`` and
    ``relay_churn`` demos at their hunt shapes, card against CPU (the
    twins and demos must violate); a step split of the three rows; the
@@ -146,7 +146,7 @@ non-zero exit code and no result line:
    ``scripts/torch_step_profile.py`` profile, and ``paxos_sw``'s step
    split beside phase 4's of ``paxos``); the other four
    twins at their fixed-cell rows' shapes, seeds and counts
-   (``SW_ROWS``); every twin card against CPU at 64 x 12 under DROP; and
+   (``SW_ROWS``); every twin card against CPU at 64 x 8 under DROP; and
    ``python -m paxi_tpu_torch.workload.demo`` on the card, its four
    stage lines equal to the CPU's;
 12. the host-sync audit (slice 12): every kernel of the sim registry and
@@ -208,7 +208,14 @@ non-zero exit code and no result line:
    ``stale_read_anomalies`` on the card at 100k groups x 16 ops, equal to
    the CPU's, every planted stale, future and initial-value read found
    (``sim_lincheck``); the phase must take under 25 s;
-16. the kernel summary line, the ``nvidia-smi`` line, and last the result
+16. the lint (slice 17; pure AST on the card machine's CPU, no kernel,
+   the launch counts read 0): ``python -m paxi_tpu_torch lint --json
+   --strict-unused`` as a process, which imports no JAX; one
+   ``lint_path`` line (exit code, families, files checked, kept and
+   suppressed findings by code prefix, seconds; host figures); it must
+   exit 0 with every family of ``analysis.RULES`` in its timings and the
+   suppressed counts pinned in ``LINT_SUPPRESSED``, in under 30 s;
+17. the kernel summary line, the ``nvidia-smi`` line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 The rows of phases 4, 8 and 9 and the hunt cases come from the drivers
@@ -243,8 +250,8 @@ SEED = 0
 GROUPS, REPLICAS = 100_000, 5
 SHARD_WORLD = 4                      # ranks sharing the card in phase 6
 # the card-against-CPU runs (phases 3 and 6); 60 steps until phase 5
-# came, 30 until phase 8 did, 20 until phase 13 did
-SMALL_GROUPS, SMALL_STEPS = 256, 12
+# came, 30 until phase 8 did, 20 until phase 13 did, 12 until phase 16 did
+SMALL_GROUPS, SMALL_STEPS = 256, 8
 WARMUP_STEPS = 8                     # the main paths' warm-up run
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 # H100 SXM int32 lanes: 64 a clock an SM, 132 SMs at 1.98 GHz (NVIDIA's
@@ -445,7 +452,8 @@ DEMO_CASES = {c[0]: (cfg_kwargs(c[1]), tuple(map(schedule_key, c[2])),
                      c[3], c[4])
               for c in hunt_cases.DEMO_CASES
               if c[0] in ("fragile_counter", "relay_churn")}
-SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 12   # 20 until phase 14
+# phase 9's card against CPU: 20 steps until phase 14, 12 until phase 16
+SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS = 64, 8
 # bench_all.py's FUZZ schedule (blockchain_forks)
 BENCH_FUZZ_ARGS = non_default(bench_all.FUZZ)
 # the seeded twins (hunt/cases.py BUG_DEMO and DEMO_CASES), under DROP, at
@@ -494,8 +502,8 @@ WL_STEPS = {"paxos": 120, "wpaxos": 45}
 WL_EXPECT = {("paxos", "uniform"): 116 * GROUPS,
              ("paxos", "zipf99"): 116 * GROUPS}
 # the card-against-CPU shape of phases 7 and 8 (30 steps until phase 9
-# came; PERF.md section 4)
-WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 12
+# came, 12 until phase 16; PERF.md section 4)
+WL_SMALL_GROUPS, WL_SMALL_STEPS = 64, 8
 WL_SHARD_GROUPS, PG_SHARD_GROUPS = 256, 257  # 257: three pad groups
 PG_PIN = dict(group=131, steps=SMALL_STEPS)  # the sharded pinned replay
 # phase 10: the drivers.  The CLI's main path is bench.py's north star
@@ -554,9 +562,10 @@ SW_ROWS = {
 }
 for _row in SW_ROWS.values():
     _row["line"] = "sw_twin"
-# every twin card against CPU at 64 x 12 under the hunt's DROP, at its
-# row's configuration (paxos_sw at the main path's)
-SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 12           # 20 until phase 14
+# every twin card against CPU at 64 x 8 under the hunt's DROP, at its
+# row's configuration (paxos_sw at the main path's); 20 steps until
+# phase 14, 12 until phase 16
+SW_SMALL_GROUPS, SW_SMALL_STEPS = 64, 8
 SW_SMALL_CFGS = {"paxos_sw": PATHS["paxos"]["cfg"],
                  **{k: r["cfg"] for k, r in SW_ROWS.items()}}
 
@@ -672,6 +681,15 @@ LINCHECK_PLANTED = {
     "clean": ([(0, False, 7, 0, 1), (0, True, 7, 2, 3),
                (0, False, 8, 4, 5), (0, True, 8, 6, 7)], 0),
 }
+
+# phase 16, the lint (slice 17): the port's paxi-lint, all seventeen
+# families over the port's tree, as a subprocess.  Pure AST on the card
+# machine's CPU, importing neither JAX nor the JAX package.  The
+# suppressed findings by code prefix are the baseline's, pinned on the CPU
+# by tests/test_torch_lint_host.py
+LINT_ARGV = ["lint", "--json", "--strict-unused"]
+LINT_SECONDS = 30
+LINT_SUPPRESSED = {"PXB": 4, "PXD": 15, "PXK": 6, "PXL": 4, "PXT": 2}
 
 
 def scenario_host_line(algorithm: str, extra, rc: int, steps: int,
@@ -2521,7 +2539,7 @@ def layout_ab_phase(paxos_line: dict, smi: str):
 
 def sw_small_phase():
     """Every sliding-window twin at its row's configuration, card against
-    CPU at 64 x 12 under the hunt's DROP: equal state, metrics (the
+    CPU at 64 x 8 under the hunt's DROP: equal state, metrics (the
     ``net_*`` counters among them) and violations, and no violation."""
     for name, cfg_kw in SW_SMALL_CFGS.items():
         card_vs_cpu_case(name, cfg_kw, "hunt_drop", SW_SMALL_GROUPS,
@@ -3442,6 +3460,61 @@ def shard_phase(smi: str):
     return launches
 
 
+# ---- phase 16: the lint --------------------------------------------------
+
+def by_prefix(findings) -> dict:
+    """Counts of lint findings (``--json`` rows) by their code's
+    three-letter prefix."""
+    out: dict = {}
+    for v in findings:
+        out[v["code"][:3]] = out.get(v["code"][:3], 0) + 1
+    return dict(sorted(out.items()))
+
+
+def lint_phase(smi: str):
+    """Phase 16: ``python -m paxi_tpu_torch lint --json --strict-unused``
+    as a process on the card's machine (no kernel runs; the launch counts
+    read 0).  It must exit 0 with every family of ``analysis.RULES``
+    timed and the pinned suppressed counts, in under LINT_SECONDS.
+    Returns the launch counts."""
+    from paxi_tpu_torch.analysis import RULES
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, stdout, stderr = finish_module(
+        start_module("paxi_tpu_torch", LINT_ARGV), 2 * LINT_SECONDS)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    try:
+        report = json.loads(stdout)
+    except ValueError:
+        fail(f"lint: rc {rc}, no JSON report\n{stdout[-1000:]}\n"
+             f"{stderr[-2000:]}")
+    suppressed = by_prefix(report["suppressed"])
+    log("lint_path " + json.dumps({
+        "argv": LINT_ARGV, "rc": rc, "families": len(report["timings"]),
+        "checked_files": report["checked_files"],
+        "kept": by_prefix(report["violations"]), "suppressed": suppressed,
+        "unused_baseline": len(report["unused_baseline"]),
+        "seconds": seconds,
+        "family_seconds": sum(report["timings"].values()),
+        "slowest": max(report["timings"], key=report["timings"].get),
+        "kernels": launches, "device": smi, "cpu": cpu_model(),
+        "figures": "host"}))
+    if rc != 0:
+        fail(f"lint: rc {rc}: {report['violations'][:5]} "
+             f"unused {report['unused_baseline']}")
+    missing = sorted(set(RULES) - set(report["timings"]))
+    if missing:
+        fail(f"lint: families not run: {missing}")
+    if suppressed != LINT_SUPPRESSED:
+        fail(f"lint: suppressed {suppressed}, pinned {LINT_SUPPRESSED}")
+    if any(launches.values()):
+        fail(f"the lint launched kernels: {launches}")
+    if seconds > LINT_SECONDS:
+        fail(f"the lint took {seconds:.1f} s, over {LINT_SECONDS} s")
+    return launches
+
+
 # ---- phase 6: four ranks on the one card ---------------------------------
 
 def sharded_case(mesh, name: str, cfg_kw, fuzz_kw, n_groups: int,
@@ -3890,14 +3963,20 @@ def main() -> int:
         raise
     t15 = time.perf_counter() - t15
     soak_phase(soak, smi)
+
+    # 16. the lint: the port's seventeen families over its tree, as a
+    # process on the card's machine (no JAX imported; no kernel runs)
+    t16 = time.perf_counter()
+    driver_launches["lint"] = lint_phase(smi)
+    t16 = time.perf_counter() - t16
     log("phase_seconds " + json.dumps({
         "workloads_single_card": t7, "four_ranks_with_workloads": t6,
         "slice8_protocols": t8, "slice9_switchpaxos": t9, "drivers": t10,
         "slice11_bench_and_sw_twins": t11, "sync_audit": t12,
         "host_twins": t13, "serving": t14, "sharded_tier": t15,
-        "script_so_far": time.perf_counter() - t_script}))
+        "lint": t16, "script_so_far": time.perf_counter() - t_script}))
 
-    # 16. the kernel summary: launches from the epaxos main path (the one
+    # 17. the kernel summary: launches from the epaxos main path (the one
     # that runs all three earlier kernels), by path beside them; the shift
     # from its own path (phase 6's ring), since no run path calls it
     launches = free["epaxos"]["kernels"]

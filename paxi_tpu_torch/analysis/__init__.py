@@ -1,50 +1,60 @@
 """paxi-lint for the port: protocol-aware static analysis of the PyTorch
-sim kernels (the JAX package's ``paxi_tpu/analysis``, restricted to the
-families that read the kernel code the port has).
+sim kernels and the asyncio host runtime (the JAX package's
+``paxi_tpu/analysis``, family for family, over ``paxi_tpu_torch/``).
 
-Rule families:
+Rule families, in the JAX package's order:
 
-- ``kernel-purity``         (purity.py,    PXK10x) — rewritten for eager
-  PyTorch: host syncs in per-step code (PXK104), device tensors built
-  from host data every step (PXK107), and the JAX package's determinism
-  codes (PXK101-103, 105, 106);
-- ``trace-map``             (tracemap.py,  PXT30x) — registry x
+- ``kernel-purity``         (purity.py,      PXK10x) — rewritten for
+  eager PyTorch: host syncs in per-step code (PXK104), device tensors
+  built from host data every step (PXK107), and the JAX package's
+  determinism codes (PXK101-103, 105, 106);
+- ``handler-completeness``  (handlers.py,    PXH20x) — every
+  ``@register_message`` class has a registered handler, and every
+  ``handle_*`` method is registered;
+- ``trace-map``             (tracemap.py,    PXT30x) — registry x
   ``mailbox_spec`` x each host twin's ``TRACE_MSG_MAP`` and its message
   classes;
-- ``quorum-safety``         (quorum.py,    PXQ50x) — the sim half
-  (PXQ502-505) over ``SimConfig``'s derived sizes and the zone and
-  row/column grids;
-- ``cross-module-flow``     (crossflow.py, PXF80x) — epoch-plane write
+- ``host-concurrency``      (concurrency.py, PXC40x + PXC45x) — lockset
+  checks over every ``paxi_tpu_torch`` module, deferred callbacks and
+  alias mutations;
+- ``quorum-safety``         (quorum.py,      PXQ50x) — intersection
+  proofs: the host replicas' ``Quorum`` predicates and size comparisons
+  (PXQ501, the row/column grid and the ``SwitchVote``/``SwitchSnap``
+  form) and the sim kernels' ``SimConfig`` sizes (PXQ502-505);
+- ``ballot-guard``          (ballots.py,     PXB60x) — message-derived
+  host state writes dominated by a ballot comparison;
+- ``sim-host-parity``       (parity.py,      PXS70x) — every kernel's
+  ``init_state`` field matched to host state by name or ``SIM_STATE_MAP``
+  (a pair rule over the registry's sim/host pairs);
+- ``cross-module-flow``     (crossflow.py,   PXF80x) — epoch-plane write
   domination through ``ballot_ring``/``cell_ring`` call sites, shared-
   plane interference, cross-module quorum flow, over PyTorch's update
   forms;
-- ``measurement-isolation`` (measure.py,   PXM10x) — m_ planes never feed
-  protocol state;
-- ``fixed-cell-layout``     (layout.py,    PXL11x) — the five fixed-cell
-  kernels never import a sliding-window shift;
-- ``workload-purity``       (workload.py,  PXW12x) — workload draws come
-  from the counter hash.
+- ``async-atomicity``       (asyncflow.py,   PXA90x) — read-modify-write
+  across an ``await`` in the host runtime;
+- ``measurement-isolation`` (measure.py,     PXM10x) — m_ planes never
+  feed protocol state;
+- ``fixed-cell-layout``     (layout.py,      PXL11x) — the five
+  fixed-cell kernels never import a sliding-window shift;
+- ``workload-purity``       (workload.py,    PXW12x) — workload draws
+  come from the counter hash;
+- ``span-isolation``        (spanrule.py,    PXO13x) — spans are
+  write-only in the protocol host modules;
+- ``replay-determinism``    (determinism.py, PXD14x) — clock, order and
+  ambient taint over ``host/``, ``shard/``, ``switchnet/`` and ``obs/``,
+  sanctioned only by the fabric-resolution guards;
+- ``epoch-fence``           (epochfence.py,  PXE15x) — every ShardMap
+  read fenced, every swap monotone;
+- ``lease-flow``            (leaseflow.py,   PXR16x) — local reads behind
+  ``_lease_ok``, monotone renewals, fenced elections and 2PC recovery;
+- ``wire-record``           (wirerecord.py,  PXV17x) — the ``*_MAGIC``
+  wire records: disjoint prefixes, pack/unpack round trips, a guarded
+  interpreter chain, reserved-prefix ingress rejection.
 
-Shared engine: ``flow.py`` (module model, guard domination, ``SymEval``)
-and ``project.py`` (the ``ProjectIndex`` over ``paxi_tpu_torch/``:
-import resolution and the cross-module call graph; ``lint --graph``
-dumps it as DOT).
-
-Left out, with the reason:
-
-- PXH (handler completeness), PXC (host concurrency), PXB (ballot-guarded
-  host handlers), PXA (async atomicity), PXO (span isolation), PXD
-  (replay determinism), PXE (epoch fence), PXR (lease flow) and PXV (wire
-  records) read ``host/``, ``shard/``, ``obs/``, ``switchnet/switch.py``
-  and the wire records — the asyncio host runtime and the serving
-  stack.  The port has the replay half of that runtime so far (every
-  host twin, no serving, no ``shard/``); the host families are queued
-  behind the serving stack.
-- PXS (sim/host state parity) pairs each kernel with its host module;
-  the port's state is held to the JAX package's by the parity tests
-  (``tests/test_torch_*.py``) instead.
-- The host-form quorum checks (PXQ501, the host grid and
-  switch-handler forms) read host modules, likewise.
+Shared engine: ``flow.py`` (module model, guard domination, ``SymEval``,
+the fabric-guard taint helpers) and ``project.py`` (the ``ProjectIndex``
+over ``paxi_tpu_torch/``: import resolution, the cross-module call graph
+and the wire-frame sink model; ``lint --graph`` dumps the graph as DOT).
 
 Entry points: ``python -m paxi_tpu_torch lint [--rule ...] [--json]``
 (cli.py; ``--rule`` takes family names or code prefixes like
@@ -61,8 +71,12 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-from paxi_tpu_torch.analysis import (astutil, crossflow, layout, measure,
-                                     purity, quorum, tracemap, workload)
+from paxi_tpu_torch.analysis import (astutil, asyncflow, ballots,
+                                     concurrency, crossflow, determinism,
+                                     epochfence, handlers, layout,
+                                     leaseflow, measure, parity, purity,
+                                     quorum, spanrule, tracemap,
+                                     wirerecord, workload)
 from paxi_tpu_torch.analysis.model import (LintReport, Suppression,
                                            Violation, apply_suppressions,
                                            inline_disables, load_baseline)
@@ -74,25 +88,50 @@ __all__ = ["RULES", "CODE_PREFIXES", "DEFAULT_BASELINE", "LintReport",
 # rule family name -> module exposing check(root, files=None)
 RULES = {
     purity.RULE: purity,
+    handlers.RULE: handlers,
     tracemap.RULE: tracemap,
+    concurrency.RULE: concurrency,
     quorum.RULE: quorum,
+    ballots.RULE: ballots,
+    parity.RULE: parity,
     crossflow.RULE: crossflow,
+    asyncflow.RULE: asyncflow,
     measure.RULE: measure,
     layout.RULE: layout,
     workload.RULE: workload,
+    spanrule.RULE: spanrule,
+    determinism.RULE: determinism,
+    epochfence.RULE: epochfence,
+    leaseflow.RULE: leaseflow,
+    wirerecord.RULE: wirerecord,
 }
 
 # violation-code prefix -> rule family, the CLI's short spelling
-# (`--rule PXK,PXF`)
+# (`--rule PXK,PXF`); PXC covers both the lockset checks and the PXC45x
+# deepening (one module)
 CODE_PREFIXES = {
     "PXK": purity.RULE,
+    "PXH": handlers.RULE,
     "PXT": tracemap.RULE,
+    "PXC": concurrency.RULE,
     "PXQ": quorum.RULE,
+    "PXB": ballots.RULE,
+    "PXS": parity.RULE,
     "PXF": crossflow.RULE,
+    "PXA": asyncflow.RULE,
     "PXM": measure.RULE,
     "PXL": layout.RULE,
     "PXW": workload.RULE,
+    "PXO": spanrule.RULE,
+    "PXD": determinism.RULE,
+    "PXE": epochfence.RULE,
+    "PXR": leaseflow.RULE,
+    "PXV": wirerecord.RULE,
 }
+
+# pair-driven rules (the registry's sim/host pairs instead of globs); the
+# port's trace-map rule reads the registry through its own globs
+_PAIR_RULES = {parity.RULE: parity}
 
 
 def resolve_rules(specs: Sequence[str]) -> List[str]:
@@ -170,6 +209,14 @@ def run_lint(root: Optional[Path] = None,
     for name in selected:
         mod = RULES[name]
         t0 = time.perf_counter()
+        if name in _PAIR_RULES:
+            # restriction matches the sim or host module, directories
+            # match their subtrees
+            for protocol, sp, hp in mod.analyzed_pairs(root, paths):
+                raw.extend(mod.check_pair(protocol, sp, hp, root))
+                checked.update((sp, hp))
+            timings[name] = time.perf_counter() - t0
+            continue
         files = (None if paths is None
                  else _target_files(root, mod, paths,
                                     strict=strict_targets))

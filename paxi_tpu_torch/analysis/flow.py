@@ -1,6 +1,5 @@
 """Interprocedural plumbing for the port's paxi-lint rule families (the
-JAX package's ``analysis/flow.py``, less its replay-determinism taint
-helpers, which only the host-runtime families read):
+JAX package's ``analysis/flow.py``):
 
 - :class:`ModuleModel` — classes, methods, module functions, self-attr
   assignments, and a name-based call graph (``self._foo()`` chains and
@@ -14,7 +13,13 @@ helpers, which only the host-runtime families read):
 - :class:`SymEval` — a symbolic evaluator for the small integer
   expression language quorum thresholds are written in (``n//2+1``,
   ``-(-3*n//4)``, ``math.ceil(3*n/4)``, ``max(z-q+1, 1)``, ...),
-  exact over rationals so ceil-division idioms cannot drift.
+  exact over rationals so ceil-division idioms cannot drift
+  (:func:`min_satisfying` reads a quorum predicate's threshold off it);
+- the replay-determinism taint plumbing (PXD14x): :func:`fabric_atom` /
+  :func:`live_only` recognize the host tier's documented
+  fabric-resolution guards (``host/node.py`` "resolved fabric under
+  replay"), and :class:`ExprTaint` is the kind-tracking expression
+  taint visitor the determinism rule walks functions with.
 
 Nothing here reads an array library's idioms: the kernels' update forms
 (``torch.where``, ``torch.maximum``) are recognised by the families that
@@ -261,6 +266,123 @@ def dominating_guards(fn: ast.AST) -> Dict[int, GuardSet]:
 
 
 # ---------------------------------------------------------------------------
+# replay-determinism taint plumbing (stage 4, PXD14x)
+# ---------------------------------------------------------------------------
+
+
+def _is_fabric_value(expr: ast.AST) -> bool:
+    """``<x>.fabric`` / bare ``fabric`` / ``current_fabric()`` — the
+    spellings the host tier uses for "the attached virtual-clock
+    fabric" (host/fabric.py)."""
+    if isinstance(expr, ast.Attribute) and expr.attr == "fabric":
+        return True
+    if isinstance(expr, ast.Name) and expr.id == "fabric":
+        return True
+    if isinstance(expr, ast.Call):
+        name = astutil.dotted_name(expr.func) or ""
+        return name.split(".")[-1] == "current_fabric"
+    return False
+
+
+def fabric_atom(test: ast.expr) -> Optional[bool]:
+    """What a guard test asserts about fabric attachment when it holds:
+    ``True`` (a fabric IS attached), ``False`` (no fabric — the live
+    serving path), or ``None`` (not a fabric test).  Recognizes
+    ``x.fabric is [not] None`` and bare ``x.fabric`` truthiness."""
+    if isinstance(test, ast.Compare) and len(test.ops) == 1 \
+            and _is_fabric_value(test.left) \
+            and isinstance(test.comparators[0], ast.Constant) \
+            and test.comparators[0].value is None:
+        if isinstance(test.ops[0], ast.Is):
+            return False
+        if isinstance(test.ops[0], ast.IsNot):
+            return True
+        return None
+    if _is_fabric_value(test):
+        return True
+    return None
+
+
+def live_only(guards: GuardSet) -> bool:
+    """True when the guard set proves the statement runs only with NO
+    fabric attached — the live serving path, which replay never
+    reaches, so the PXD14x determinism obligations do not apply.  The
+    polarity algebra: an atom ``(test, held)`` with
+    ``fabric_atom(test) != held`` means every entry path established
+    "no fabric" (either the test says so and held, or it says a fabric
+    is attached and its negation held — the early-return idiom)."""
+    for test, polarity in guards:
+        fa = fabric_atom(test)
+        if fa is not None and fa != polarity:
+            return True
+    return False
+
+
+class ExprTaint(ast.NodeVisitor):
+    """Which taint kinds does an expression carry?  ``tainted`` maps
+    local names to a kind tag; ``root_of`` classifies any
+    sub-expression as a fresh taint root (returning its kind, or
+    None).  Fabric-resolution short circuits are sanctioned in place:
+    in ``no_fabric and <e>`` / ``has_fabric or <e>`` / the matching
+    ternary arms, ``<e>`` only evaluates on the live path and carries
+    no replay taint.  Nested defs/lambdas are opaque, like every
+    per-function walk in this package."""
+
+    def __init__(self, tainted: Dict[str, str],
+                 root_of: Optional[Callable[[ast.AST],
+                                            Optional[str]]] = None):
+        self.tainted = tainted
+        self.root_of = root_of
+        self.kinds: Set[str] = set()
+
+    def visit(self, node: ast.AST):
+        if self.root_of is not None:
+            kind = self.root_of(node)
+            if kind is not None:
+                self.kinds.add(kind)
+        return super().visit(node)
+
+    def visit_Name(self, node: ast.Name) -> None:
+        if isinstance(node.ctx, ast.Load) and node.id in self.tainted:
+            self.kinds.add(self.tainted[node.id])
+
+    def visit_BoolOp(self, node: ast.BoolOp) -> None:
+        live = False
+        for value in node.values:
+            if not live:
+                self.visit(value)
+            fa = fabric_atom(value)
+            if isinstance(node.op, ast.And) and fa is False:
+                live = True                 # rest evaluates live-only
+            elif isinstance(node.op, ast.Or) and fa is True:
+                live = True
+
+    def visit_IfExp(self, node: ast.IfExp) -> None:
+        self.visit(node.test)
+        fa = fabric_atom(node.test)
+        if fa is not False:
+            self.visit(node.body)           # body is live-only when False
+        if fa is not True:
+            self.visit(node.orelse)         # orelse is live-only when True
+
+    def visit_FunctionDef(self, node) -> None:   # nested defs: opaque
+        pass
+
+    visit_AsyncFunctionDef = visit_FunctionDef
+    visit_Lambda = visit_FunctionDef
+
+
+def expr_taint(expr: ast.expr, tainted: Dict[str, str],
+               root_of: Optional[Callable[[ast.AST],
+                                          Optional[str]]] = None
+               ) -> Set[str]:
+    """The taint kinds ``expr`` carries under ``tainted``/``root_of``."""
+    t = ExprTaint(tainted, root_of)
+    t.visit(expr)
+    return t.kinds
+
+
+# ---------------------------------------------------------------------------
 # symbolic integer expressions
 # ---------------------------------------------------------------------------
 
@@ -405,3 +527,19 @@ class SymEval:
             return None if v is None else not v
         v = self.eval(node)
         return None if v is None else v != 0
+
+
+def min_satisfying(predicate: ast.expr, count_key: str,
+                   evaluator: SymEval, n: int) -> Optional[int]:
+    """Smallest ``k`` in ``0..n`` making ``predicate`` true when
+    ``count_key`` (e.g. ``"len(self.acks)"``) evaluates to ``k`` —
+    i.e. the threshold a quorum predicate encodes for cluster size
+    ``n``.  Returns ``None`` when unsatisfiable or unresolvable."""
+    for k in range(0, n + 1):
+        evaluator.env[count_key] = Fraction(k)
+        ok = evaluator.eval_bool(predicate)
+        if ok is None:
+            return None
+        if ok:
+            return k
+    return None

@@ -2,9 +2,10 @@
 JAX package's ``analysis/project.py``, its universe the ``paxi_tpu_torch``
 package).
 
-The cross-module families (cross-module flow PXF8xx, and the kernel
-surface of kernel-purity PXK1xx) need the one thing module-locality
-cannot give: a call in kernel A
+The cross-module families (cross-module flow PXF8xx, async-atomicity
+PXA9xx, replay-determinism PXD14x, and the kernel surface of
+kernel-purity PXK1xx) need the one thing module-locality cannot give: a
+call in kernel A
 resolved to its definition in helper module B, with the analysis
 context (guards, thresholds, message-ness) carried across the file
 boundary.  This module supplies exactly that, still *purely static* —
@@ -24,6 +25,9 @@ no module under analysis is ever imported:
 - **DOT dump** (``python -m paxi_tpu_torch lint --graph``): the cross-module
   edges, nodes colored by package, so analysis coverage is a picture
   instead of a claim.
+- **wire-frame sink model** (:func:`message_fields`): the
+  ``@register_message`` classes and ``core/command.py``'s wire types
+  with their fields, where host state meets the wire (PXD14x).
 
 Modules are parsed lazily and cached; the call graph is built over the
 ``paxi_tpu_torch`` package plus any explicitly indexed files (how
@@ -393,4 +397,49 @@ def _enclosing_map(tree: ast.Module) -> Dict[int, List[ast.AST]]:
                 walk(child, stack)
 
     walk(tree, [])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wire-frame sink model (stage 4, PXD14x)
+# ---------------------------------------------------------------------------
+
+# every top-level dataclass of core/command.py crosses the wire (inside
+# WireRequest frames or the HTTP surface), so its constructor keywords
+# are frame-emission sinks alongside the @register_message classes
+_COMMAND_MODULE = f"{PACKAGE}/core/command.py"
+
+_MESSAGE_FIELDS: Dict[int, Dict[str, List[str]]] = {}
+
+
+def message_fields(index: "ProjectIndex") -> Dict[str, List[str]]:
+    """The wire-frame sink model: class name -> declared field names,
+    for every class decorated ``@register_message`` anywhere in the
+    indexed universe, plus the client wire types of
+    ``core/command.py``.  A constructor call (or field store) on one of
+    these is where host state meets the wire — the PXD14x frame-
+    emission sink set.  Purely static (decorator spotting, AnnAssign
+    fields) and cached per index, like the call graph."""
+    cached = _MESSAGE_FIELDS.get(id(index))
+    if cached is not None:
+        return cached
+    out: Dict[str, List[str]] = {}
+
+    def fields_of(cls: ast.ClassDef) -> List[str]:
+        return [item.target.id for item in cls.body
+                if isinstance(item, ast.AnnAssign)
+                and isinstance(item.target, ast.Name)]
+
+    for rel in index._universe():
+        info = index.module(rel)
+        if info is None:
+            continue
+        for node in info.tree.body:
+            if not isinstance(node, ast.ClassDef):
+                continue
+            if rel == _COMMAND_MODULE or any(
+                    d.split(".")[-1] == "register_message"
+                    for d in astutil.decorator_names(node)):
+                out.setdefault(node.name, fields_of(node))
+    _MESSAGE_FIELDS[id(index)] = out
     return out

@@ -1,4 +1,4 @@
-"""Trace-map coverage rule family (PXT3xx), sim half, over the port.
+"""Trace-map coverage rule family (PXT3xx) over the port.
 
 The hunt projects a sim trace's per-mailbox fault schedule onto the host
 runtime's message classes through the protocol's ``TRACE_MSG_MAP`` (sim
@@ -32,14 +32,20 @@ Checks:
 - **PXT303** a map key that names no sim mailbox (stale after a kernel
   refactor — it will never match a recorded fault)
 - **PXT304** a map value naming no ``@register_message`` class of the
-  twin's module (the fabric matches type names, so a typo never fires)
+  twin's module (``Socket.drop_next`` matches on ``type(msg).__name__``,
+  so a typo never fires)
+
+The same registry reading gives the (sim kernel, host twin) pairs that
+the sim-host-parity family (parity.py) walks: :func:`registry_pairs` and
+:func:`analyzed_pairs`.  :func:`check_pair` runs these checks on one
+explicit pair (a fixture's), reporting PXT301 at the host module.
 """
 
 from __future__ import annotations
 
 import ast
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from paxi_tpu_torch.analysis import astutil
 from paxi_tpu_torch.analysis.model import Violation
@@ -113,14 +119,9 @@ def _maps(root: Path) -> Dict[str, Tuple[Dict[str, str], int, Path]]:
     it), for every twin that exports a map."""
     out: Dict[str, Tuple[Dict[str, str], int, Path]] = {}
     for protocol, path in twin_modules(root).items():
-        if not path.exists():
-            continue
-        tm = astutil.parse_module_dict(astutil.parse_file(path)[0],
-                                       MAP_NAME)
-        if tm is not None:
-            out[protocol] = ({key: val or "" for key, val, _, _
-                              in astutil.str_dict_items(tm)}, tm.lineno,
-                             path)
+        found = host_map(path) if path.exists() else None
+        if found is not None:
+            out[protocol] = (*found, path)
     return out
 
 
@@ -162,12 +163,19 @@ def sim_mailboxes(sim_path: Path) -> List[Tuple[str, int]]:
     return []
 
 
-def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
-             ) -> List[Tuple[str, str, Path, int]]:
-    """(protocol, sim module, sim path, registry line) for every kernel
-    this rule checks.  ``restrict`` (files or directories) keeps a
-    protocol when its sim module, the registry or a twin's file falls
-    inside."""
+def host_map(host_path: Path) -> Optional[Tuple[Dict[str, str], int]]:
+    """(TRACE_MSG_MAP as dict, its line) or None when absent."""
+    d = astutil.parse_module_dict(astutil.parse_file(host_path)[0],
+                                  MAP_NAME)
+    if d is None:
+        return None
+    return {key: val or "" for key, val, _, _
+            in astutil.str_dict_items(d)}, d.lineno
+
+
+def _matcher(restrict: Optional[Sequence[Path]]) -> Callable[[Path], bool]:
+    """Is a path one of ``restrict``'s files or under one of its
+    directories?"""
     dirs = [p.resolve() for p in restrict or [] if p.is_dir()]
     files = {p.resolve() for p in restrict or [] if p.is_file()}
 
@@ -175,7 +183,16 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
         rp = path.resolve()
         return rp in files or any(str(rp).startswith(str(d) + "/")
                                   for d in dirs)
+    return inside
 
+
+def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
+             ) -> List[Tuple[str, str, Path, int]]:
+    """(protocol, sim module, sim path, registry line) for every kernel
+    this rule checks.  ``restrict`` (files or directories) keeps a
+    protocol when its sim module, the registry or a twin's file falls
+    inside."""
+    inside = _matcher(restrict)
     shared = (inside(root / REGISTRY)
               or any(inside(p) for p in twin_modules(root).values()))
     out = []
@@ -187,6 +204,92 @@ def analyzed(root: Path, restrict: Optional[Sequence[Path]] = None
             continue
         out.append((protocol, sim_mod, sim_path, line))
     return out
+
+
+def registry_pairs(root: Path) -> List[Tuple[str, Path, Path]]:
+    """(protocol, sim path, host twin path) for every registry protocol
+    whose projection resolves a host twin — base protocols and variants
+    alike (``base_protocol``'s rule over ``twin_modules``, so a
+    ``TWIN_OF`` shim resolves to its base), deduplicated on (sim
+    module, twin file)."""
+    twins = twin_modules(root)
+    out: List[Tuple[str, Path, Path]] = []
+    seen = set()
+    for protocol, sim_mod, _ in registry(root):
+        base = base_protocol(protocol, sim_mod, twins)
+        if base is None:
+            continue            # sim-only protocol
+        key = (sim_mod, twins[base])
+        if key not in seen:
+            seen.add(key)
+            out.append((protocol, _module_to_path(sim_mod, root),
+                        twins[base]))
+    return sorted(out, key=lambda t: t[0])
+
+
+def analyzed_pairs(root: Path,
+                   restrict: Optional[Sequence[Path]] = None
+                   ) -> List[Tuple[str, Path, Path]]:
+    """(protocol, sim path, host path) for every pair a pair rule
+    (sim-host-parity) analyzes.  ``restrict`` (files or directories)
+    keeps a pair when its sim OR host module falls inside."""
+    inside = _matcher(restrict)
+    return [(protocol, sp, hp) for protocol, sp, hp in registry_pairs(root)
+            if sp.exists() and hp.exists()
+            and (restrict is None or inside(sp) or inside(hp))]
+
+
+def _map_violations(protocol: str, boxes: List[Tuple[str, int]],
+                    mapping: Dict[str, str], line: int, map_path: str,
+                    classes: set) -> List[Violation]:
+    """PXT302-304 of one sim kernel's mailboxes against one map."""
+    out: List[Violation] = []
+    box_names = {name for name, _ in boxes}
+    for name, _ in boxes:
+        if name not in mapping:
+            out.append(Violation(
+                rule=RULE, code="PXT302", path=map_path, line=line, col=0,
+                message=f"sim mailbox `{name}` of protocol "
+                        f"`{protocol}` is not covered by "
+                        f"{MAP_NAME} — its recorded faults degrade "
+                        "to coarse drop windows"))
+    for k in mapping:
+        if k not in box_names:
+            out.append(Violation(
+                rule=RULE, code="PXT303", path=map_path, line=line, col=0,
+                message=f"{MAP_NAME} key `{k}` names no sim mailbox "
+                        f"of protocol `{protocol}` (stale after a "
+                        "kernel refactor?)"))
+    for k, val in mapping.items():
+        if val not in classes:
+            out.append(Violation(
+                rule=RULE, code="PXT304", path=map_path, line=line, col=0,
+                message=f"{MAP_NAME} value `{val}` (key `{k}`) "
+                        "names no @register_message class in the "
+                        "host module — drop_next matches type names, "
+                        "a typo never fires"))
+    return out
+
+
+def check_pair(protocol: str, sim_path: Path, host_path: Path,
+               root: Path) -> List[Violation]:
+    """One sim kernel against one host module's map: PXT301 when the
+    module exports none, else PXT302-304."""
+    rel_host = astutil.rel(host_path, root)
+    boxes = sim_mailboxes(sim_path)
+    if not boxes:
+        return []               # no mailbox_spec: not a sim kernel
+    found = host_map(host_path)
+    if found is None:
+        return [Violation(
+            rule=RULE, code="PXT301", path=rel_host, line=1, col=0,
+            message=f"protocol `{protocol}` has a sim twin "
+                    f"({astutil.rel(sim_path, root)}) but its host "
+                    f"module exports no {MAP_NAME} — sim witnesses "
+                    "cannot project onto host fault directives")]
+    mapping, line = found
+    return _map_violations(protocol, boxes, mapping, line, rel_host,
+                           host_message_classes(host_path))
 
 
 def check(root: Path,
@@ -217,33 +320,7 @@ def check(root: Path,
             continue            # a variant on its base's kernel and map
         seen.add(key)
         mapping, line, map_file = sources[base]
-        map_path = astutil.rel(map_file, root)
-        box_names = {name for name, _ in boxes}
-        for name, _ in boxes:
-            if name not in mapping:
-                out.append(Violation(
-                    rule=RULE, code="PXT302", path=map_path, line=line,
-                    col=0,
-                    message=f"sim mailbox `{name}` of protocol "
-                            f"`{protocol}` is not covered by "
-                            f"{MAP_NAME} — its recorded faults degrade "
-                            "to coarse drop windows"))
-        for k in mapping:
-            if k not in box_names:
-                out.append(Violation(
-                    rule=RULE, code="PXT303", path=map_path, line=line,
-                    col=0,
-                    message=f"{MAP_NAME} key `{k}` names no sim mailbox "
-                            f"of protocol `{protocol}` (stale after a "
-                            "kernel refactor?)"))
-        classes = host_message_classes(map_file)
-        for k, val in mapping.items():
-            if val not in classes:
-                out.append(Violation(
-                    rule=RULE, code="PXT304", path=map_path, line=line,
-                    col=0,
-                    message=f"{MAP_NAME} value `{val}` (key `{k}`) "
-                            "names no @register_message class in the "
-                            "host module — the fabric matches type "
-                            "names, a typo never fires"))
+        out.extend(_map_violations(protocol, boxes, mapping, line,
+                                   astutil.rel(map_file, root),
+                                   host_message_classes(map_file)))
     return out

@@ -72,7 +72,13 @@ def test_files_found():
                    "shard/__init__.py", "shard/shardmap.py", "shard/txn.py",
                    "shard/migrate.py", "shard/router.py", "shard/cluster.py",
                    "shard/bench.py", "bench_shard.py", "sim/lincheck.py",
-                   "utils/graph.py"):
+                   "utils/graph.py",
+                   # the lint's host families
+                   "analysis/handlers.py", "analysis/concurrency.py",
+                   "analysis/asyncflow.py", "analysis/ballots.py",
+                   "analysis/spanrule.py", "analysis/determinism.py",
+                   "analysis/epochfence.py", "analysis/leaseflow.py",
+                   "analysis/wirerecord.py", "analysis/parity.py"):
         assert "paxi_tpu_torch/" + module in FILES
     assert len(FILES) > 15
 
@@ -82,6 +88,15 @@ def test_no_jax_import(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = [m for m in _imported(tree)
            if m.split(".")[0] in BANNED]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", [f for f in FILES
+                                  if f.startswith("paxi_tpu_torch/analysis/")])
+def test_lint_imports_no_torch(path):
+    """The lint is static: it needs neither torch nor a card."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = [m for m in _imported(tree) if m.split(".")[0] == "torch"]
     assert not bad, f"{path} imports {bad}"
 
 

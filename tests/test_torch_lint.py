@@ -640,8 +640,9 @@ def test_rule_prefixes_and_timings():
                                                    "cross-module-flow"]
     assert analysis.resolve_rules(["pxq", "quorum-safety"]) == \
         ["quorum-safety"]
+    assert analysis.resolve_rules(["PXH"]) == ["handler-completeness"]
     with pytest.raises(KeyError):
-        analysis.resolve_rules(["PXH"])
+        analysis.resolve_rules(["PXZ"])
     report = analysis.run_lint(rules=["PXL,PXW"])
     assert set(report.timings) == {"fixed-cell-layout", "workload-purity"}
     assert json.loads(report.to_json())["ok"] is True
@@ -659,6 +660,15 @@ def test_cli_lint_json_on_fixture(tmp_path, capsys):
                                                        "PXW123"}
     assert set(out) == {"ok", "violations", "suppressed", "unused_baseline",
                         "checked_files", "timings"}
+
+
+def test_cli_rule_prefixes_run_exactly_those_families(capsys):
+    from paxi_tpu_torch.cli import main
+    assert main(["lint", "--rule", "PXD,PXE", "--json"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert list(report["timings"]) == ["replay-determinism", "epoch-fence"]
+    assert {v["code"][:3] for v in report["suppressed"]} == {"PXD"}
+    assert report["violations"] == [] and report["unused_baseline"] == []
 
 
 def test_cli_lint_unknown_rule_rejected(capsys):
