@@ -21,11 +21,13 @@ non-zero exit code and no result line:
    against the bytes bound of ``csrc/exchange.cu``; the closure
    kernel at the EPaxos execution step's shape (500,000 graphs of 80 nodes, two
    densities), on the graphs the EPaxos path itself hands the closure at
-   step 30 of its fault-free and fuzzed runs, and at 130 and 256 nodes,
-   and the ring shift (``make_remote_lane_shift``, one ``shift.many`` call
-   a state) at world 1 over every plane of an epaxos state of 100,000
-   groups; CUDA-event times (median), bytes moved, the bound, and for the
-   shift ``out.copy_(x)`` as the library yardstick;
+   step 30 of its fault-free and fuzzed runs, at 130 and 256 nodes, at
+   the CLI's epaxos defaults (3,072 graphs of 384 nodes, 10,240 of 320;
+   the block kernel) and at 64 x 1,500 and 8 x 2,048 (bit rows in global
+   scratch), and the ring shift (``make_remote_lane_shift``, one
+   ``shift.many`` call a state) at world 1 over every plane of an epaxos
+   state of 100,000 groups; CUDA-event times (median), bytes moved, the
+   bound, and for the shift ``out.copy_(x)`` as the library yardstick;
 3. card against CPU: the same seed and a small shape (256 groups x 8
    steps) run on both devices
    under a fault-free and a fuzzed schedule must give identical final
@@ -44,13 +46,15 @@ non-zero exit code and no result line:
 5. record, replay, shrink, scenarios and checkpoints: the hunt's seeded
    bug (``wpaxos_thinq1``, 9 replicas in 3 zones, under p_drop 0.05 inside
    the wan3z zone-latency matrix) captured at 100,000 groups x 100 steps
-   (every group's schedule recorded on the card), replayed twice and from
-   its saved file to the capture's state hash, counters and latency
-   histogram, and the real wpaxos under the same schedule with 0
-   violations; the same case at the hunt's 16 groups recorded on the card
-   and on the CPU (every plane equal), then shrunk on the card (4
-   replays); wpaxos 3 x 3 under wan3z alone at 100,000 groups (bench_all's
-   ``wpaxos_wan3z_geo``) with its zone-local and cross-zone latency; and
+   (every group's schedule recorded on the card), saved, loaded and
+   replayed from its file to the capture's state hash, counters and
+   latency histogram (replayed twice more until phase 10 ran the CLI's
+   epaxos defaults), and the real wpaxos under the same schedule with 0
+   violations; the same case at the hunt's 16 groups x 40 steps recorded
+   on the card and on the CPU (every plane equal), then shrunk on the
+   card (4 replays); wpaxos 3 x 3 under wan3z
+   alone at 100,000 groups (bench_all's ``wpaxos_wan3z_geo``) with its
+   zone-local and cross-zone latency; and
    the fuzzed paxos path resumed from a checkpoint (52 steps,
    ``save_carry``, ``load_carry``, 52 more) equal to the straight run;
 6. four ranks sharing the card (``parallel.launch.spawn``, gloo): the
@@ -88,10 +92,11 @@ non-zero exit code and no result line:
    ``wankeeper_nofloor`` at the hunt's BUG_DEMO case captured at 100,000
    groups x 80 steps (a violating group found, one replay equal to the
    capture) and ``bpaxos_noread`` at 100,000 groups (it must violate; card
-   against CPU at 16 groups); every new kernel and twin card against
-   CPU at 64 groups x 8 steps, fault-free and fuzzed; phase 2 also checks
-   and times the exchange at the wankeeper (6 replicas, 9 types), bpaxos
-   (7, 5 types) and blockchain (5, one type, wheel depth 2) mailboxes;
+   against CPU at 16 groups x 40 steps); every new kernel and twin card
+   against CPU at 64 groups x 8 steps, fault-free and fuzzed; phase 2
+   also checks and times the exchange at the wankeeper (6 replicas, 9
+   types), bpaxos (7, 5 types) and blockchain (5, one type, wheel depth
+   2) mailboxes;
 9. switchpaxos and the demo kernels (slice 9): the exchange pair at the
    switchpaxos mailbox (6 types, 22 planes; 5 replicas at wheel depth 1
    and 3, 3 replicas at the wan3z depth); ``bench_all.py``'s switchnet
@@ -107,7 +112,7 @@ non-zero exit code and no result line:
    and the seqchurn row's own violation captured and replayed the same
    way; switchpaxos fault-free and under DROP, PART, KILL and seqchurn
    at 64 x 8,
-   nogap at 16 groups and the per-group ``fragile_counter`` and
+   nogap at 16 groups x 40 steps and the per-group ``fragile_counter`` and
    ``relay_churn`` demos at their hunt shapes, card against CPU (the
    twins and demos must violate); a step split of the three rows; the
    seqchurn witness is saved as the hunt's corpus seed;
@@ -115,7 +120,13 @@ non-zero exit code and no result line:
    ``cli.main`` in-process at the main path (``sim -algorithm paxos
    -groups 100000 -replicas 5 -slots 64 -steps 104``: 10,000,000
    committed, 0 violations, 104 launches of each exchange half) and one
-   short ``python -m paxi_tpu_torch sim`` subprocess; a hunt
+   short ``python -m paxi_tpu_torch sim`` subprocess; ``sim -algorithm
+   epaxos`` and ``profile -algorithm epaxos`` in-process at the CLI's
+   defaults (1,024 groups x 3 x 128 x 100 steps: 112,640 committed and
+   executed, 100 closure launches and 100 of each exchange half; 2,048 x
+   5 x 64 x 36 steps, a warm-up and three timed runs: 86,016 committed,
+   144 launches of each), 0 violations, and the epaxos line at 4 groups x
+   12 steps on the card equal to the CPU's; a hunt
    micro-campaign through ``cli.main`` (``hunt run --protocols
    switchpaxos,switchpaxos_nogap --budget 1 --quick --shrink-trials 4``,
    host replay on, its corpus seeded with phase 9's 100k seqchurn
@@ -465,6 +476,10 @@ TWIN_DROP_ARGS = non_default(hunt_cases.DROP)
 HUNT_PART_ARGS = non_default(hunt_cases.PART)
 HUNT_KILL_ARGS = non_default(hunt_cases.KILL)
 TWIN_STEPS, TWIN_SMALL_GROUPS = 80, 16
+# the seeded twins' card-against-CPU runs (both still violate at 16 x 40;
+# TWIN_STEPS and NOGAP_STEPS, 80, until phase 10 ran the CLI's epaxos
+# defaults)
+TWIN_SMALL_STEPS = 40
 # phase 6's sharded card-against-CPU runs
 SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
                   "sdpaxos": NEW_PATHS["sdpaxos"]["cfg"],
@@ -474,7 +489,15 @@ SHARDED_CHECKS = {"paxos": PATHS["paxos"]["cfg"],
 CLOSURE_SHAPES = (("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.02),
                   ("main_path", REPLICAS * GROUPS, REPLICAS * 16, 0.1),
                   ("n130", 50_000, 130, 0.02),
-                  ("n256", 20_000, 256, 0.02))
+                  ("n256", 20_000, 256, 0.02),
+                  # the CLI's epaxos defaults (phase 10): sim's 1,024
+                  # groups x 3 replicas x 128 instances and profile's
+                  # 2,048 x 5 x 64, then two widths whose bit rows exceed
+                  # a block's shared memory
+                  ("sim_default", 1024 * 3, 3 * 128, 0.02),
+                  ("profile_default", 2048 * 5, 5 * 64, 0.02),
+                  ("n1500", 64, 1500, 0.02),
+                  ("n2048", 8, 2048, 0.02))
 CLOSURE_CHUNK_BYTES = 1_300_000_000  # float32 operand of the plain check
 PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
 # phase 5: the hunt's seeded-bug case (paxi_tpu/hunt/cases.py,
@@ -482,8 +505,11 @@ PATH_GRAPH_STEP = 30                 # the EPaxos step whose graphs are taken
 # matrix), captured and replayed at GROUPS, shrunk at the hunt's 16 groups
 WITNESS_CFG = hunt_cfg("wpaxos_thinq1", 9)
 # (the shrink's trials 40 until phase 14 came, 61 s on the card; 10 until
-# phase 15 came, 20.3 s; 4 now)
+# phase 15 came, 20.3 s; 4 now).  The hunt's 16 groups run 40 steps (100
+# until phase 10 ran the CLI's epaxos defaults: its witness first violates
+# at step 15 and shrinks to 16)
 WITNESS_STEPS, HUNT_GROUPS, SHRINK_TRIALS, GEO_DROP = 100, 16, 4, 0.05
+HUNT_STEPS = 40
 # bench_all.py's wpaxos_wan3z_geo row: wpaxos 3 x 3 under wan3z alone
 SCENARIO_CFG = NEW_PATHS["wpaxos"]["cfg"]
 SCENARIO_STEPS = 100
@@ -523,6 +549,19 @@ HUNT_DIR = SCRATCH_DIR + "/hunt"
 # line ``python -m paxi_tpu scenario run -host`` prints for the same
 # arguments on the CPU, exit code 1 included (both host runtimes count
 # one linearizability anomaly in this run; ROADMAP Queue 3)
+# the epaxos path through the CLI at its own defaults: sim (1,024 groups
+# x 3 replicas x 128 instances x 16 keys, 100 steps; graphs of 384 nodes)
+# and profile (2,048 x 5 x 64, 36 steps, a warm-up and three timed runs;
+# graphs of 320), fault-free: every group commits and executes 110 and 42
+# instances (as the CPU's runs at a few groups do); then the sim line at 4
+# groups x 12 steps on the card against the CPU's
+CLI_EPAXOS_SIM_ARGV = ["sim", "-algorithm", "epaxos"]
+CLI_EPAXOS_SIM = dict(groups=1024, replicas=3, steps=100, per_group=110)
+CLI_EPAXOS_PROFILE_ARGV = ["profile", "-algorithm", "epaxos"]
+CLI_EPAXOS_PROFILE = dict(groups=2048, replicas=5, steps=36, runs=4,
+                          per_group=42)
+CLI_EPAXOS_SMALL_ARGV = ["sim", "-algorithm", "epaxos", "-groups", "4",
+                         "-steps", "12"]
 SCENARIO_HOST_ARGV = ["scenario", "run", "-host", "-scenario", "wan3z",
                       "-algorithm", "paxos", "-replicas", "3", "-zones", "3",
                       "-steps", "40"]
@@ -963,11 +1002,22 @@ def exchange_phase(path: str, spec, depths=(1, 3),
     return rows
 
 
-def closure_ops(b: int, n: int) -> int:
+def warshall_ops(b: int, n: int) -> int:
     """The word and-ors Warshall's algorithm needs on ``b`` graphs of ``n``
     nodes at most: n steps, each ORing row k's ceil(n/32) words into every
     row that has bit k (all n rows at most; no padded rows counted)."""
     return b * n * n * ((n + 31) // 32)
+
+
+def closure_ops(b: int, n: int, variant: str) -> int:
+    """The word operations the closure kernel's route does on ``b`` graphs
+    of ``n`` nodes at most: the warp kernel's Warshall; the block kernel's
+    panels (32 masked rows a word), tables (28 ORs a word of each of 8) and
+    rows (8 table entries a word), W = ceil(n/32) panels of W words."""
+    if variant == "warp":
+        return warshall_ops(b, n)
+    w = (n + 31) // 32
+    return b * (8 * n + 1024 + 224) * w * w
 
 
 def closure_row(label, a, p=None, reps=TIMED_REPS):
@@ -993,19 +1043,26 @@ def closure_row(label, a, p=None, reps=TIMED_REPS):
     plain_ms = median_ms(plain_all, reps=5)
     nbytes = 2 * a.numel()              # read adj once, write reach once
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = closure_ops(b, n)
+    route = C.closure_route(n, a.data_ptr() % 16, 0)
+    ops = closure_ops(b, n, route.variant)
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # Warshall's bound, as the warp kernel's rows state it
+    warshall_ms = max(bytes_ms, warshall_ops(b, n) / INT32_OPS_PER_S * 1e3)
     # the TPU kernel's formulation: n_iter float squarings of N x N
     tpu_flop = C._n_iter(n) * 2 * n ** 3 * b
     row = {"kernel": "transitive_closure", "shape": label, "graphs": b,
-           "nodes": n, "density": p,
+           "nodes": n, "density": p, "variant": route.variant,
+           "threads": route.threads, "vec": route.vec,
            "edges_per_graph": int(a.sum()) / b,
            "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bytes": nbytes, "int32_ops": ops,
            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "share_of_bound": bound_ms / ms,
+           "warshall_ops": warshall_ops(b, n),
+           "warshall_bound_ms": warshall_ms,
+           "share_of_warshall_bound": warshall_ms / ms,
            "squaring_flop_of_tpu_form": tpu_flop}
     log("kernel " + json.dumps(row))
     if err != 0:
@@ -1016,7 +1073,8 @@ def closure_row(label, a, p=None, reps=TIMED_REPS):
 
 def closure_phase():
     """The closure kernel against its plain version on seeded random
-    graphs at the EPaxos step's shape and at 130 and 256 nodes."""
+    graphs at the EPaxos step's shape, at 130 and 256 nodes, at the CLI's
+    epaxos defaults (384 and 320 nodes) and at 1,500 and 2,048."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 7)
     rows = []
@@ -1369,10 +1427,11 @@ def geo_fuzz(drop: float = GEO_DROP):
     return FuzzConfig(p_drop=drop, scenario=NAMED["wan3z"])
 
 
-def expect_launches(label: str, launches, steps: int) -> None:
+def expect_launches(label: str, launches, steps: int,
+                    closure: int = 0) -> None:
     want = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
             "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
-            "transitive_closure": 0, "make_remote_lane_shift": 0}
+            "transitive_closure": closure, "make_remote_lane_shift": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
 
@@ -1384,9 +1443,9 @@ def meta_of(trace) -> dict:
 
 def witness_phase(smi: str):
     """The thin-Q1 geo witness at GROUPS groups: capture (every group's
-    schedule recorded on the card), two replays, a save/load round trip and
-    its replay; then the real wpaxos under the same schedule.  Returns the
-    trace and the capture's launch counts."""
+    schedule recorded on the card), a save/load round trip and a replay of
+    the loaded trace; then the real wpaxos under the same schedule.
+    Returns the capture's launch counts."""
     import os
     from paxi_tpu_torch import trace as T
     from paxi_tpu_torch.protocols import sim_protocol
@@ -1421,20 +1480,6 @@ def witness_phase(smi: str):
         "peak_memory_bytes": peak, "kernels": launches,
         "schedule_hash": m["schedule_hash"], "device": smi}))
 
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    r = T.check_determinism(tr_, device=DEVICE)
-    replay_s = (time.perf_counter() - t0) / 2
-    launches = launch_counts()
-    expect_launches("witness replays", launches, 2 * WITNESS_STEPS)
-    for what, got, want in (
-            ("state hash", r.state_hash, m["capture_state_hash"]),
-            ("counters", r.counters, m["capture_counters"]),
-            ("latency histogram", r.lat_hist, m.get("capture_lat_hist")),
-            ("violations", r.violations, m["group_violations"])):
-        if got != want:
-            fail(f"witness replay: {what} {got} != capture's {want}")
-
     os.makedirs(SCRATCH_DIR, exist_ok=True)
     t0 = time.perf_counter()
     path = T.save(os.path.join(SCRATCH_DIR, "witness"), tr_)
@@ -1442,17 +1487,27 @@ def witness_phase(smi: str):
     io_s = time.perf_counter() - t0
     if meta_of(loaded) != meta_of(tr_):
         fail("witness trace: the loaded meta differs from the saved one")
-    r2 = T.replay(loaded, device=DEVICE)
-    if r2.state_hash != m["capture_state_hash"] \
-            or r2.counters != m["capture_counters"]:
-        fail("witness trace: the loaded trace replays to another state")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = T.replay(loaded, device=DEVICE)
+    replay_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expect_launches("witness replay", launches, WITNESS_STEPS)
+    for what, got, want in (
+            ("state hash", r.state_hash, m["capture_state_hash"]),
+            ("counters", r.counters, m["capture_counters"]),
+            ("latency histogram", r.lat_hist, m.get("capture_lat_hist")),
+            ("violations", r.violations, m["group_violations"])):
+        if got != want:
+            fail(f"witness replay: {what} {got} != capture's {want}")
     log("witness_path " + json.dumps({
-        "phase": "replay", "replays": 3, "replay_wall_s": replay_s,
+        "phase": "replay", "replays": 1, "from_file": True,
+        "replay_wall_s": replay_s,
         "state_hash": r.state_hash, "equal_to_capture": True,
         "violations": r.violations,
         "first_violation_step": r.first_violation_step(),
         "file_bytes": os.path.getsize(path), "save_load_s": io_s,
-        "kernels_two_replays": launches}))
+        "kernels_one_replay": launches}))
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1487,7 +1542,7 @@ def hunt_phase():
                         SimConfig(**WITNESS_CFG), geo_fuzz())
     t0 = time.perf_counter()
     recs = {dev: make_recorded_run(proto, cfg, fuzz, device=dev)(
-        tr.PRNGKey(SEED), HUNT_GROUPS, WITNESS_STEPS)
+        tr.PRNGKey(SEED), HUNT_GROUPS, HUNT_STEPS)
         for dev in ("cpu", DEVICE)}
     a, b = (flatten({"sched": r[4], "viol_steps": r[3], "state": r[0]})
             for r in (recs["cpu"], recs[DEVICE]))
@@ -1495,14 +1550,14 @@ def hunt_phase():
         if a[k].dtype != b[k].dtype or not (a[k] == b[k]).all():
             fail(f"hunt capture: {k} differs between CPU and card")
     traces = {dev: T.capture(proto, cfg, fuzz, SEED, HUNT_GROUPS,
-                             WITNESS_STEPS, device=dev)
+                             HUNT_STEPS, device=dev)
               for dev in ("cpu", DEVICE)}
     if traces["cpu"] is None or \
             meta_of(traces["cpu"]) != meta_of(traces[DEVICE]):
         fail("hunt capture: the card's trace differs from the CPU's")
     tr_ = traces[DEVICE]
     log("witness_card_vs_cpu " + json.dumps({
-        "groups": HUNT_GROUPS, "steps": WITNESS_STEPS, "equal": True,
+        "groups": HUNT_GROUPS, "steps": HUNT_STEPS, "equal": True,
         "planes_compared": len(a), "group": tr_.meta["group"],
         "group_violations": tr_.meta["group_violations"],
         "first_violation_step": tr_.meta["first_violation_step"],
@@ -2054,7 +2109,7 @@ def twin_phase(smi: str):
     del res
 
     card_vs_cpu_case("bpaxos_noread", TWIN_CFGS["bpaxos_noread"],
-                     "hunt_drop", TWIN_SMALL_GROUPS, TWIN_STEPS, True)
+                     "hunt_drop", TWIN_SMALL_GROUPS, TWIN_SMALL_STEPS, True)
     return capture_launches, noread_launches
 
 
@@ -2106,7 +2161,7 @@ def slice9_small_phase():
     card_vs_cpu_case("switchpaxos", SEQCHURN_CFG, "seqchurn_drop",
                      SWITCH_SMALL_GROUPS, SWITCH_SMALL_STEPS, False)
     card_vs_cpu_case("switchpaxos_nogap", HUNT_SWITCH_CFG, "hunt_drop",
-                     NOGAP_SMALL_GROUPS, NOGAP_STEPS, True)
+                     NOGAP_SMALL_GROUPS, TWIN_SMALL_STEPS, True)
     for name, (cfg_kw, scheds, groups, steps) in DEMO_CASES.items():
         for sched in scheds:
             card_vs_cpu_case(name, cfg_kw, sched, groups, steps, True)
@@ -2165,6 +2220,80 @@ def cli_phase(smi: str):
         fail(f"python -m paxi_tpu_torch sim: rc {proc.returncode}, "
              f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
     return launches
+
+
+def cli_epaxos_phase(smi: str) -> dict:
+    """``sim -algorithm epaxos`` and ``profile -algorithm epaxos`` at the
+    CLI's defaults in-process on the card (graphs of 384 and 320 nodes:
+    one closure launch a step and one of each exchange half a step, 0
+    violations, every group's instances committed and executed), then the
+    sim line at 4 groups x 12 steps on the card against the CPU's."""
+    from paxi_tpu_torch import cli
+    out = {}
+    spec = CLI_EPAXOS_SIM
+    want = spec["per_group"] * spec["groups"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = captured(cli.main, CLI_EPAXOS_SIM_ARGV)
+    wall_s = time.perf_counter() - t0
+    out["cli_epaxos_sim_default"] = launches = launch_counts()
+    line = json.loads(text)
+    log("cli_epaxos_sim " + json.dumps({
+        "argv": CLI_EPAXOS_SIM_ARGV, "rc": rc, "groups": line["groups"],
+        "replicas": line["replicas"], "steps": line["steps"],
+        "nodes_a_graph": line["replicas"] * 128,
+        "committed_slots": line["committed_slots"],
+        "executed": line["executed"],
+        "invariant_violations": line["invariant_violations"],
+        "inscan_violations": line["inscan_violations"],
+        "executed_per_sec": line["executed"] / wall_s, "wall_s": wall_s,
+        "ms_a_step": wall_s / line["steps"] * 1e3, "kernels": launches,
+        "device": smi}))
+    if rc != 0 or line["invariant_violations"] != 0 \
+            or line["inscan_violations"] != 0:
+        fail(f"cli epaxos sim: rc {rc}, violations "
+             f"{line['invariant_violations']}/{line['inscan_violations']}")
+    if (line["groups"], line["replicas"], line["steps"]) != (
+            spec["groups"], spec["replicas"], spec["steps"]) \
+            or line["committed_slots"] != want or line["executed"] != want:
+        fail(f"cli epaxos sim: {line}, expected {want} committed and "
+             f"executed")
+    expect_launches("cli epaxos sim default", launches, spec["steps"],
+                    closure=spec["steps"])
+
+    spec = CLI_EPAXOS_PROFILE
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = captured(cli.main, CLI_EPAXOS_PROFILE_ARGV)
+    wall_s = time.perf_counter() - t0
+    out["cli_epaxos_profile_default"] = launches = launch_counts()
+    rep = json.loads(text)
+    log("cli_epaxos_profile " + json.dumps({
+        "argv": CLI_EPAXOS_PROFILE_ARGV, "rc": rc, **rep, "wall_s": wall_s,
+        "kernels": launches, "device": smi}))
+    runs = spec["runs"] * spec["steps"]
+    if rc != 0 or rep["invariant_violations"] != 0 \
+            or (rep["groups"], rep["replicas"], rep["steps"]) != (
+                spec["groups"], spec["replicas"], spec["steps"]) \
+            or rep["committed_slots"] != spec["per_group"] * spec["groups"]:
+        fail(f"cli epaxos profile: rc {rc}, {rep}")
+    expect_launches("cli epaxos profile default", launches, runs,
+                    closure=runs)
+
+    # the same line on the card and on the CPU
+    lines = {}
+    for dev in (DEVICE, "cpu"):
+        argv = CLI_EPAXOS_SMALL_ARGV + (["-device", "cpu"]
+                                        if dev == "cpu" else [])
+        rc, text = captured(cli.main, argv)
+        lines[dev] = (rc, json.loads(text))
+    log("cli_epaxos_card_vs_cpu " + json.dumps({
+        "argv": CLI_EPAXOS_SMALL_ARGV, "equal": lines[DEVICE] == lines["cpu"],
+        "line": lines[DEVICE][1]}))
+    if lines[DEVICE] != lines["cpu"] or lines["cpu"][0] != 0:
+        fail(f"cli epaxos 4 x 12: card {lines[DEVICE]} != cpu "
+             f"{lines['cpu']}")
+    return out
 
 
 def host_replay(trace):
@@ -3915,6 +4044,7 @@ def main() -> int:
     # bench_all row and one fuzz_soak record through the twins
     t10 = time.perf_counter()
     driver_launches = {"cli_main_path": cli_phase(smi),
+                       **cli_epaxos_phase(smi),
                        "hunt_campaign": hunt_campaign_phase(
                            seqchurn_launches[2], smi),
                        "bench_all_paxos_3rep": bench_twin_phase(smi),
@@ -4042,7 +4172,13 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None,
-        "ms_epaxos_path_graphs": {r["shape"]: r["ms"] for r in prows}})
+        "ms_epaxos_path_graphs": {r["shape"]: r["ms"] for r in prows},
+        "by_shape": {
+            f"{r['shape']}_{r['graphs']}x{r['nodes']}_p{r['density']}":
+            {k: r[k] for k in ("variant", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "share_of_bound",
+                               "warshall_bound_ms")}
+            for r in crows}})
     kernels.append({
         "name": "make_remote_lane_shift", "route": "cuda",
         "source": "paxi_tpu_torch/ops/csrc/lane_shift.cu",

@@ -13,7 +13,8 @@ FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "paxi_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/torch_step_profile.py",
        "scripts/torch_ab.py", "scripts/torch_op_count.py",
-       "scripts/torch_invariant_terms.py"]
+       "scripts/torch_invariant_terms.py",
+       "scripts/torch_closure_routes.py"]
 BANNED = ("jax", "jaxlib", "paxi_tpu")
 
 

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the two
 exchange kernels (one launch a step each, at every shape of the main
 paths, the outbox as protocols lay it and at a ragged G), the transitive
-closure and the ring shift (at world 1
+closure (every route: the warp kernel, the block kernel with its bit rows
+in shared memory and in global scratch, up to 2,048 nodes) and the ring
+shift (at world 1
 and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
 paths on the card against the same runs on the CPU, workload runs and the
 per-group paxos_pg kernel on the card against the CPU, sharded runs
@@ -270,10 +272,19 @@ def test_main_path_goes_through_the_kernels(card):
 
 CLOSURE_SHAPES = {"small": [(b, n) for b in (1, 5, 7, 300)
                             for n in (1, 2, 5, 16, 23, 31, 32, 33, 48, 80,
-                                      97, 112, 130, 256)],
+                                      97, 112, 130, 256)]
+                  + [(b, n) for b in (1, 5, 7)
+                     for n in (224, 257, 320, 384, 500, 1000)],
                   "main_path": [(500_000, 80)],
                   "n130": [(50_000, 130)],
-                  "n256": [(20_000, 256)]}
+                  "n256": [(20_000, 256)],
+                  # the sim and profile defaults' epaxos graphs (3 x 128
+                  # at 1,024 groups, 5 x 64 at 2,048), and two widths whose
+                  # bit rows exceed a block's shared memory
+                  "sim_default": [(3_072, 384)],
+                  "profile_default": [(10_240, 320)],
+                  "n1500": [(64, 1_500)],
+                  "n2048": [(8, 2_048)]}
 
 
 def _closure_err(a, chunk_bytes=1_300_000_000):
@@ -313,7 +324,7 @@ def test_closure_odd_offset_and_special_graphs(card):
     big = torch.rand((301, 5, 5), generator=gen, device=card) < 0.3
     assert big[1:].data_ptr() % 2 == 1
     assert _closure_err(big[1:]) == 0
-    for n in (1, 2, 31, 32, 33, 80, 130, 256):
+    for n in (1, 2, 31, 32, 33, 80, 130, 256, 257, 320, 384, 500, 1000):
         eye = torch.eye(n, dtype=torch.bool, device=card)
         a = torch.stack([torch.zeros_like(eye), torch.ones_like(eye), eye,
                          torch.roll(eye, 1, dims=1), eye])
@@ -333,9 +344,12 @@ def test_closure_chain_and_cycle(card):
 
 
 def test_closure_rejects_bad_arguments(card):
-    with pytest.raises(ValueError, match="N <= 256"):
-        pc.closure_launch(torch.zeros((1, 257, 257), dtype=torch.bool,
-                                      device=card))
+    # 257 nodes, above the warp kernel, go to the block kernel and equal
+    # the plain version (graphs the JAX package computes)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(257)
+    wide = torch.rand((3, 257, 257), generator=gen, device=card) < 0.01
+    assert _closure_err(wide) == 0
     with pytest.raises(TypeError):
         pc.closure_launch(torch.zeros((1, 5, 5), dtype=torch.uint8,
                                       device=card))
