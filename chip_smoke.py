@@ -1284,62 +1284,38 @@ def closure_events(acc):
 def step_split_phase(path: str, proto, cfg, fuzz, label: str,
                      n_steps: int = 8):
     """Device time of each stage of one lock-step round at the main
-    path's shape, by CUDA events between the stages (the runner's
-    ``_group_step`` sequence, after ``n_steps`` warm steps); for epaxos
-    also the closure kernel's share of the protocol step."""
+    path's shape, from the runner's own spans (``make_scan_body`` with an
+    ``obs.SpanCollector``: a CUDA event at every stage boundary) over
+    ``n_steps`` rounds after ``n_steps`` warm ones, each round waited for;
+    for epaxos also the closure kernel's share of the protocol step."""
     from paxi_tpu_torch import random as tr
-    from paxi_tpu_torch.metrics.simcount import step_counts
-    from paxi_tpu_torch.ops import exchange as ops
-    from paxi_tpu_torch.sim import lanes
-    from paxi_tpu_torch.sim import mailbox as mb
-    from paxi_tpu_torch.sim.runner import (flush_measurements, init_carry,
-                                           make_scan_body)
-    from paxi_tpu_torch.sim.types import StepCtx
+    from paxi_tpu_torch.obs import SpanCollector
+    from paxi_tpu_torch.sim.runner import init_carry, make_scan_body
 
     dev = torch.device(DEVICE)
-    stages = ("deliver", "protocol_step", "faults_and_counts", "insert",
-              "invariants", "flush")
-    acc = {s: [] for s in stages}
+    spans = SpanCollector(node="step_split", cap=n_steps * 10 + 8)
     closure_ms = []
     with torch.inference_mode():
         carry = init_carry(proto, cfg, fuzz, GROUPS, tr.PRNGKey(SEED), dev)
         body = make_scan_body(proto, cfg, fuzz)
         for t in range(n_steps):
             carry, _ = body(carry, t)
+        timed = make_scan_body(proto, cfg, fuzz, spans)
+        spans.episode(dev)
         for t in range(n_steps, 2 * n_steps):
-            ev = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(stages) + 1)]
             cl = []
-            state, wheel, fs, rng = carry
-            ev[0].record()
-            rng, k_step, k_fault, k_ins = tr.split(rng, 4)
-            inbox, wheel = ops.wheel_deliver(wheel)
-            ev[1].record()
             with closure_events(cl):
-                new_state, outbox = proto.step(state, inbox,
-                                               StepCtx(k_step, t, cfg))
-            ev[2].record()
-            fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz,
-                                           cfg.n_replicas)
-            faults = mb.draw_edge_faults(k_ins, outbox, fuzz)
-            sent = outbox
-            outbox, faults = mb.full_edges(outbox, faults, GROUPS)
-            wv = ({n: b.planes[:, 0] != 0 for n, b in wheel.items()}
-                  if fuzz.wheel > 1 else None)
-            step_counts(inbox, sent, faults, fs, cfg.n_replicas,
-                        wheel_valid=wv)
-            ev[3].record()
-            wheel = ops.wheel_insert(wheel, outbox, fs, faults)
-            ev[4].record()
-            proto.invariants(state, new_state, cfg)
-            ev[5].record()
-            carry = flush_measurements(proto, cfg,
-                                       (new_state, wheel, fs, rng), t)
-            ev[6].record()
+                carry, _ = timed(carry, t)
             torch.cuda.synchronize()
-            for i, s in enumerate(stages):
-                acc[s].append(ev[i].elapsed_time(ev[i + 1]))
             closure_ms.append(sum(a.elapsed_time(b) for a, b in cl))
+    spans.resolve()
+    acc = {}
+    for d in spans.export():
+        if d["kind"] == "stage":
+            # the host's milliseconds where no event was recorded (a CPU
+            # rehearsal)
+            ms = d["labels"].get("device_ms", (d["t1"] - d["t0"]) * 1e3)
+            acc.setdefault(d["labels"]["stage"], []).append(float(ms))
     split = {s: statistics.mean(v) for s, v in acc.items()}
     row = {"protocol": path, "schedule": label, "groups": GROUPS,
            "steps_timed": n_steps, "mean_ms": split,
@@ -1347,7 +1323,7 @@ def step_split_phase(path: str, proto, cfg, fuzz, label: str,
     if path == "epaxos":
         row["closure_kernel_ms"] = statistics.mean(closure_ms)
         row["closure_share_of_protocol_step"] = (
-            row["closure_kernel_ms"] / split["protocol_step"])
+            row["closure_kernel_ms"] / split["step"])
     log("step_split " + json.dumps(row))
 
 

@@ -23,12 +23,23 @@ Span taxonomy (kinds):
                   records, one per (group, record)
 - ``tpc``       — participant-side handling of one 2PC record at the
                   home/participant group's entry node
+- ``round``     — one lock-step round of the simulation's round loop
+                  (``sim/runner.py``), labels ``t`` and ``episode``
+- ``stage``     — one stage of a round, or an episode's set-up and
+                  wind-up, the stage's name under the ``stage`` label:
+                  ``keys``, ``deliver``, ``step``, ``faults``,
+                  ``counts``, ``insert``, ``invariants``, ``flush``
+                  (children of their ``round``), ``init``, ``finish``
+                  (top level of the episode's trace)
 
 Timestamps come from the virtual-clock fabric when the emitting
 collector holds one (``t`` is the integer fabric step — deterministic,
 byte-identical across replays of the same schedule) and from
 ``time.perf_counter()`` in live serving (monotonic seconds, comparable
-only within one process).
+only within one process).  On the simulation path every ``round`` and
+``stage`` boundary also records a CUDA event on the run's stream, so a
+span carries the device clock's milliseconds too (``device_ms`` label,
+written by ``SpanCollector.resolve`` once the caller has synced).
 
 The wire encoding of a trace context is the single properties value
 ``"<trace>:<parent-span>"`` under key ``"trace"`` — it rides the
@@ -49,7 +60,7 @@ TRACE_HEADER = "Property-Trace"
 
 KINDS = ("request", "route", "serve", "batch", "quorum", "exec",
          "writeback", "txn", "prepare", "decide", "commit", "abort",
-         "tpc")
+         "tpc", "round", "stage")
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,11 @@ the compiled-HLO op counts are reported as null; the reference's
 is not ported: their layout A/B is ``python -m paxi_tpu_torch.bench
 --kernel <name>_sw`` beside ``--kernel <name>``.
 ``trace_dir`` wraps the timed runs in ``torch.profiler`` and writes a
-Chrome trace (``trace.json``, for chrome://tracing or Perfetto).
+Chrome trace (``trace.json``, for chrome://tracing or Perfetto); beside it
+``spans.json``, the runner's own spans of the timed runs (an episode a
+run, a ``round`` span a round and its stages, each with its device
+milliseconds on the card) through ``obs.render.chrome_trace``.  A sharded
+run writes ``trace.json`` alone: the sharded runner records no spans.
 """
 
 from __future__ import annotations
@@ -62,6 +66,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def write_spans(trace_dir: str, spans) -> None:
+    """The collector's spans as ``<trace_dir>/spans.json`` (Trace Event
+    Format), their device times resolved (the caller has synced)."""
+    from paxi_tpu_torch.obs import chrome_trace as render
+    spans.resolve()
+    os.makedirs(trace_dir, exist_ok=True)
+    with open(os.path.join(trace_dir, "spans.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(render(spans.export()), f)
+
+
 @contextlib.contextmanager
 def chrome_trace(trace_dir: str):
     """Profile the block (CPU and, where there is one, the card) into
@@ -108,13 +123,19 @@ def run_profile(algorithm: str = "paxos_pg", groups: int = 2048,
     proto = sim_protocol(algorithm)
     cfg = SimConfig(n_replicas=replicas, n_slots=slots)
     fuzz = fuzz or FuzzConfig()
+    spans = None
     if mesh is not None:
         from paxi_tpu_torch.parallel import make_sharded_run
         dev = mesh.device
-        run = make_sharded_run(proto, cfg, fuzz=fuzz, mesh=mesh)
+        run = timed = make_sharded_run(proto, cfg, fuzz=fuzz, mesh=mesh)
     else:
         dev = resolve_device(device)
-        run = make_run(proto, cfg, fuzz=fuzz, device=dev)
+        run = timed = make_run(proto, cfg, fuzz=fuzz, device=dev)
+        if trace_dir:
+            from paxi_tpu_torch.obs import SpanCollector
+            spans = SpanCollector(
+                node="profile", cap=max(repeats, 1) * (10 * steps + 4))
+            timed = make_run(proto, cfg, fuzz=fuzz, device=dev, spans=spans)
     # the lane-major exchange launches the CUDA kernels on the card and
     # runs their plain versions on the CPU; per-group kernels exchange
     # through tensor code on either
@@ -137,9 +158,11 @@ def run_profile(algorithm: str = "paxos_pg", groups: int = 2048,
                       else ""):
         for _ in range(max(repeats, 1)):
             t0 = time.perf_counter()
-            _, metrics, viols = run(tr.PRNGKey(seed), groups, steps)
+            _, metrics, viols = timed(tr.PRNGKey(seed), groups, steps)
             _sync(dev)
             best = min(best, time.perf_counter() - t0)
+    if spans is not None:
+        write_spans(trace_dir, spans)
 
     committed = int(metrics.get("committed_slots", 0))
     return {

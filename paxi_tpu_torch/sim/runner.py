@@ -18,12 +18,22 @@ Per-group kernels (``paxos_pg``) carry it FIRST, one key a group
 ``sim/mailbox_pg.py``'s tensor code, as the reference runs them.  The
 public final state is group-leading either way.  The entry points run on
 the card unless the caller passes ``device="cpu"``.
+
+Spans: ``init_carry``, ``make_scan_body``, ``finish_run`` and ``make_run``
+take an optional ``obs.SpanCollector``.  With one, each episode is a trace
+of ``init`` and ``finish`` stages and one ``round`` span a round holding
+its stages in order (``keys``, ``deliver``, ``step``, ``faults``,
+``counts``, ``insert``, ``invariants``, ``flush``), each boundary stamped
+on the host clock and, on the card, by a CUDA event (the collector's round
+tier; ``spans.resolve()`` after a sync labels their device milliseconds).
+Without one the loop reads no clock and records no event.  Either way the
+results are the same bit for bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -38,6 +48,9 @@ from paxi_tpu_torch.sim import mailbox as mb
 from paxi_tpu_torch.sim import mailbox_pg as mbpg
 from paxi_tpu_torch.sim.types import (FAULT_FREE, FuzzConfig, SimConfig,
                                       SimProtocol, StepCtx, resolve_device)
+
+if TYPE_CHECKING:
+    from paxi_tpu_torch.obs import SpanCollector
 
 
 @dataclass
@@ -92,11 +105,24 @@ class SimResult:
 
 
 def init_carry(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
-               n_groups: int, rng: torch.Tensor, device):
+               n_groups: int, rng: torch.Tensor, device,
+               spans: "SpanCollector" = None):
     """``(state, wheel, fs, key)`` at step 0, on ``device``; a per-group
     kernel's key is the batch of its groups' keys, ``split(k_run,
     n_groups)``, and its ``wl_gid`` plane (workload runs) holds the
-    groups' ids ``0..n_groups-1``, as the reference's runner patches it."""
+    groups' ids ``0..n_groups-1``, as the reference's runner patches it.
+    ``spans`` starts a new episode's trace with its ``init`` stage."""
+    if spans is None:
+        return _init_carry(proto, cfg, fuzz, n_groups, rng, device)
+    spans.episode(device)
+    spans.stage("init")
+    carry = _init_carry(proto, cfg, fuzz, n_groups, rng, device)
+    spans.end()
+    return carry
+
+
+def _init_carry(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
+                n_groups: int, rng: torch.Tensor, device):
     spec = proto.mailbox_spec(cfg)
     k_state, k_run = tr.split(rng.to(device))
     state = proto.init_state(cfg, k_state, n_groups, device=device)
@@ -150,27 +176,40 @@ def _record_faults(faults, outbox, live):
 
 def pg_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig, carry,
             t: int, sched_t=None, pin_on: Optional[int] = None,
-            record: bool = False):
+            record: bool = False, spans: "SpanCollector" = None):
     """One lock-step round of a per-group kernel, every group from its own
     key: ``(carry, (viol, counts[, sched]))`` with each group's
     violations ``viol (G,)`` and counters ``{name: (G,)}`` unsummed (the
     sharded runner masks pad groups out before it sums).  ``pin_on`` is
     the local index of the group that takes ``sched_t``; ``record`` also
-    returns the effective schedule ``(G, ...)``."""
+    returns the effective schedule ``(G, ...)``.  ``spans`` marks the
+    stages after ``keys`` inside the round its caller opened."""
     state, wheel, fs, rngs = carry
     ks = tr.split(rngs, 4)                                # (G, 4, 2)
     rngs, k_step, k_fault, k_ins = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+    if spans is not None:
+        spans.stage("deliver")
     inbox, wheel = mbpg.wheel_deliver(wheel)
+    if spans is not None:
+        spans.stage("step")
     new_state, outbox = proto.step(state, inbox, StepCtx(k_step, t, cfg))
+    if spans is not None:
+        spans.stage("faults")
     fs = mbpg.fault_state_refresh(fs, k_fault, t, fuzz, cfg.n_replicas)
     faults = mbpg.draw_edge_faults(k_ins, outbox, fuzz)
+    if spans is not None:
+        spans.stage("counts")
     if sched_t is not None and pin_on is not None:
         fs, faults = _pin(fs, faults, sched_t, pin_on, lead=True)
     wheel_valid = ({n: b["valid"].transpose(0, 1) for n, b in wheel.items()}
                    if fuzz.wheel > 1 else None)
     counts = step_counts(inbox, outbox, faults, fs, cfg.n_replicas,
                          wheel_valid=wheel_valid, per_group=True)
+    if spans is not None:
+        spans.stage("insert")
     wheel = mbpg.wheel_insert(wheel, outbox, fs, fuzz, faults)
+    if spans is not None:
+        spans.stage("invariants")
     viol = proto.group_invariants(state, new_state, cfg)
     new_carry = (new_state, wheel, fs, rngs)
     if record:
@@ -187,9 +226,10 @@ def _sum_counts(counts):
 
 def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
                 carry, t: int, sched_t=None, pin_on: Optional[int] = None,
-                record: bool = False):
+                record: bool = False, spans: "SpanCollector" = None):
     """One lock-step round: deliver -> step -> refresh faults -> draw
-    faults -> count -> insert -> check invariants.
+    faults -> count -> insert -> check invariants.  ``spans`` marks each
+    stage after ``keys`` inside the round its caller opened.
 
     Trace hooks (``paxi_tpu_torch.trace``):
     - ``sched_t``: this step's recorded single-group schedule (``{"conn",
@@ -203,7 +243,8 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
     A per-group kernel runs ``pg_step`` and sums its groups' counters (and
     violations, but for the record and pinned runs)."""
     if not proto.batched:
-        out = pg_step(proto, cfg, fuzz, carry, t, sched_t, pin_on, record)
+        out = pg_step(proto, cfg, fuzz, carry, t, sched_t, pin_on, record,
+                      spans)
         new_carry, (viol, counts, *sched) = out
         if pin_on is not None:
             viol = viol[pin_on:pin_on + 1]
@@ -212,10 +253,18 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
         return new_carry, (viol, _sum_counts(counts), *sched)
     state, wheel, fs, rng = carry
     rng, k_step, k_fault, k_ins = tr.split(rng, 4)
+    if spans is not None:
+        spans.stage("deliver")
     inbox, wheel = ops.wheel_deliver(wheel)
+    if spans is not None:
+        spans.stage("step")
     new_state, outbox = proto.step(state, inbox, StepCtx(k_step, t, cfg))
+    if spans is not None:
+        spans.stage("faults")
     fs = lanes.fault_state_refresh(fs, k_fault, t, fuzz, cfg.n_replicas)
     faults = mb.draw_edge_faults(k_ins, outbox, fuzz)
+    if spans is not None:
+        spans.stage("counts")
     # the reference counts a send the same for every group (chain's ack,
     # ``(src, dst, 1)``) once, at its own shape
     sent_box = outbox
@@ -228,7 +277,11 @@ def _group_step(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
                    if fuzz.wheel > 1 else None)
     counts = step_counts(inbox, sent_box, faults, fs, cfg.n_replicas,
                          wheel_valid=wheel_valid)
+    if spans is not None:
+        spans.stage("insert")
     wheel = ops.wheel_insert(wheel, outbox, fs, faults)
+    if spans is not None:
+        spans.stage("invariants")
     if pin_on is not None:
         def one(x):
             return x[..., pin_on:pin_on + 1]
@@ -272,13 +325,22 @@ def flush_measurements(proto: SimProtocol, cfg: SimConfig, carry, t: int):
     return (flush(state),) + tuple(carry[1:])
 
 
-def make_scan_body(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig):
+def make_scan_body(proto: SimProtocol, cfg: SimConfig, fuzz: FuzzConfig,
+                   spans: "SpanCollector" = None):
     """``body(carry, t) -> (carry, (viol, counts))``: one step plus the
-    deferred flush."""
+    deferred flush; with ``spans``, one ``round`` span a call and its
+    stages."""
 
     def body(carry, t: int):
-        carry, ys = _group_step(proto, cfg, fuzz, carry, t)
-        return flush_measurements(proto, cfg, carry, t), ys
+        if spans is None:
+            carry, ys = _group_step(proto, cfg, fuzz, carry, t)
+            return flush_measurements(proto, cfg, carry, t), ys
+        spans.round(t, "keys")
+        carry, ys = _group_step(proto, cfg, fuzz, carry, t, spans=spans)
+        spans.stage("flush")
+        carry = flush_measurements(proto, cfg, carry, t)
+        spans.end()
+        return carry, ys
 
     return body
 
@@ -312,12 +374,24 @@ def run_steps(body, carry, n_steps: int, t0: int = 0,
 
 
 def finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts,
-               group_mask: Optional[torch.Tensor] = None):
+               group_mask: Optional[torch.Tensor] = None,
+               spans: "SpanCollector" = None):
     """Protocol metrics plus the accumulated ``net_*`` counters; a
     lane-major final state moves its group axis to the front (the public
     layout).  A per-group kernel's metrics are per group and summed here;
     ``group_mask`` (per-group kernels only) leaves groups out of the sums
-    (the sharded runner's pad groups)."""
+    (the sharded runner's pad groups).  ``spans`` records the episode's
+    ``finish`` stage."""
+    if spans is None:
+        return _finish_run(proto, cfg, carry, viols, counts, group_mask)
+    spans.stage("finish")
+    out = _finish_run(proto, cfg, carry, viols, counts, group_mask)
+    spans.end()
+    return out
+
+
+def _finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts,
+                group_mask: Optional[torch.Tensor]):
     state = carry[0]
     if proto.batched:
         assert group_mask is None, "lane-major metrics aggregate in-kernel"
@@ -335,21 +409,22 @@ def finish_run(proto: SimProtocol, cfg: SimConfig, carry, viols, counts,
 
 def make_run(proto: SimProtocol, cfg: SimConfig,
              fuzz: FuzzConfig = FAULT_FREE, series: bool = False,
-             device=None):
+             device=None, spans: "SpanCollector" = None):
     """Build ``run(rng, n_groups, n_steps) -> (state, metrics,
     violations)`` on ``device`` (the card unless ``"cpu"`` is asked
     for).  ``rng`` is a key from ``paxi_tpu_torch.random.PRNGKey``.
     ``series=True`` adds the per-step ``net_*`` counters ``{name: (T,)}``
-    as a fourth output."""
+    as a fourth output.  ``spans`` records each call as an episode; the
+    caller syncs and calls ``spans.resolve()`` for the device times."""
     dev = resolve_device(device)
-    body = make_scan_body(proto, cfg, fuzz)
+    body = make_scan_body(proto, cfg, fuzz, spans)
 
     def run(rng: torch.Tensor, n_groups: int, n_steps: int):
         with torch.inference_mode():
-            carry = init_carry(proto, cfg, fuzz, n_groups, rng, dev)
+            carry = init_carry(proto, cfg, fuzz, n_groups, rng, dev, spans)
             carry, viols, counts, steps = run_steps(body, carry, n_steps,
                                                     series=series)
-            out = finish_run(proto, cfg, carry, viols, counts)
+            out = finish_run(proto, cfg, carry, viols, counts, spans=spans)
             return (*out, steps) if series else out
 
     return run
