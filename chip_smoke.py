@@ -821,18 +821,21 @@ def median_ms(fn, reps: int = TIMED_REPS, inner: int = 1) -> float:
 
 
 def launch_counts():
-    from paxi_tpu_torch.ops import closure, exchange
+    from paxi_tpu_torch.ops import closure, exchange, exec_graph
     return {"wheel_deliver": exchange.wheel_deliver.launches,
             "wheel_insert": exchange.wheel_insert.launches,
             "transitive_closure": closure.transitive_closure.launches,
+            "dep_graph": exec_graph.dep_graph.launches,
+            "exec_masks": exec_graph.exec_masks.launches,
             "make_remote_lane_shift":
                 exchange.make_remote_lane_shift.launches}
 
 
 def reset_launch_counts() -> None:
-    from paxi_tpu_torch.ops import closure, exchange
+    from paxi_tpu_torch.ops import closure, exchange, exec_graph
     exchange.reset_launches()
     closure.reset_launches()
+    exec_graph.reset_launches()
 
 
 # ---- phase 2: kernels against their plain versions ----------------------
@@ -1086,6 +1089,87 @@ def closure_phase():
     return rows
 
 
+def exec_block_inputs(r: int, i: int, g: int, seed: int):
+    """Seeded deps below, inside and above each owner's window and absent
+    (-1), committed and executed masks, on the card."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    nn = r * i
+    base = torch.randint(0, 1 << 20, (r, r, g), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    rel = torch.randint(-3, i + 3, (r, nn, r, g), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    deps = base[:, None] + rel
+    del rel
+    deps = torch.where(torch.rand(deps.shape, generator=gen, device=DEVICE)
+                       < 0.2, -1, deps)
+    committed = torch.rand((r, nn, g), generator=gen, device=DEVICE) < 0.7
+    executed = committed & (torch.rand((r, nn, g), generator=gen,
+                                       device=DEVICE) < 0.3)
+    return deps, base, committed, executed
+
+
+def exec_block_row(label, r, i, g, reps=TIMED_REPS):
+    """The EPaxos execution block's two kernels against their plain
+    versions on seeded inputs of ``g`` groups of ``r`` replicas x ``i``
+    instances, exact, each timed alone beside the closure between them."""
+    from paxi_tpu_torch.ops import closure as C
+    from paxi_tpu_torch.ops import exec_graph as X
+    nn = r * i
+    deps, base, committed, executed = exec_block_inputs(r, i, g, SEED + nn)
+    adj, fblock = X.dep_graph_launch(deps, base, committed)
+    want = X.dep_graph_plain(deps, base, committed)
+    err_graph = int((adj != want[0]).sum()) + int((fblock != want[1]).sum())
+    del want
+    dep_ms = median_ms(lambda: X.dep_graph_launch(deps, base, committed),
+                       reps=reps)
+    dep_plain_ms = median_ms(lambda: X.dep_graph_plain(deps, base,
+                                                       committed), reps=3)
+    edges = int(adj.sum())
+    reach = C.closure_launch(adj)
+    closure_ms = median_ms(lambda: C.closure_launch(adj), reps=reps)
+    del adj
+    got = X.exec_masks_launch(reach, committed, fblock, executed)
+    want = X.exec_masks_plain(reach, committed, fblock, executed)
+    err_masks = sum(int((a != b).sum()) for a, b in zip(got, want))
+    del got, want
+    mask_ms = median_ms(lambda: X.exec_masks_launch(reach, committed, fblock,
+                                                    executed), reps=reps)
+    mask_plain_ms = median_ms(lambda: X.exec_masks_plain(
+        reach, committed, fblock, executed), reps=3)
+    plane = r * nn * g
+    dep_bytes = 4 * plane * r + 4 * r * r * g + plane + r * g * nn * nn \
+        + plane
+    mask_bytes = r * g * nn * nn + 5 * plane
+    row = {"shape": label, "graphs": r * g, "nodes": nn,
+           "closure_ms": closure_ms, "edges_per_graph": edges / (r * g)}
+    for name, ms, plain_ms, nbytes, err, extra in (
+            ("dep_graph", dep_ms, dep_plain_ms, dep_bytes, err_graph,
+             {"tiling": X.graph_tiling(nn)._asdict()}),
+            ("exec_masks", mask_ms, mask_plain_ms, mask_bytes, err_masks,
+             {"tiling": X.mask_tiling(nn)._asdict()})):
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bytes": nbytes, "bound_ms": bound_ms,
+                     "share_of_bound": bound_ms / ms, **extra}
+    log("kernel exec_block " + json.dumps(row))
+    if err_graph or err_masks:
+        fail(f"exec_graph kernels differ from their plain versions at "
+             f"{label}: {err_graph} graph, {err_masks} mask elements")
+    return row
+
+
+def exec_block_phase():
+    """The execution block's kernels at the EPaxos step's shape (500k
+    graphs of 80 nodes) and at the CLI's epaxos default (3,072 of 384)."""
+    rows = []
+    for label, r, i, g in (("main_path", REPLICAS, 16, GROUPS),
+                           ("sim_default", 3, 128, 1024)):
+        rows.append(exec_block_row(label, r, i, g))
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def closure_calls(wrap):
     """Route every closure call of the EPaxos step through ``wrap(real,
@@ -1258,6 +1342,8 @@ def main_path_run(path: str, proto, cfg, fuzz, label: str, smi: str,
     want_launches = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
                      "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
                      "transitive_closure": steps if path == "epaxos" else 0,
+                     "dep_graph": steps if path == "epaxos" else 0,
+                     "exec_masks": steps if path == "epaxos" else 0,
                      "make_remote_lane_shift": 0}
     for name, n in launches.items():
         if n != want_launches[name]:
@@ -1407,7 +1493,8 @@ def expect_launches(label: str, launches, steps: int,
                     closure: int = 0) -> None:
     want = {"wheel_deliver": steps * EXCHANGE_LAUNCHES_A_STEP,
             "wheel_insert": steps * EXCHANGE_LAUNCHES_A_STEP,
-            "transitive_closure": closure, "make_remote_lane_shift": 0}
+            "transitive_closure": closure, "dep_graph": closure,
+            "exec_masks": closure, "make_remote_lane_shift": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
 
@@ -3870,7 +3957,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    _build.build(["exchange", "closure", "lane_shift"])
+    _build.build(["exchange", "closure", "lane_shift", "exec_graph"])
     build_s = time.perf_counter() - t0
     log("device " + json.dumps({
         "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
@@ -3906,6 +3993,7 @@ def main() -> int:
             replicas=rcfg.n_replicas)
     crows = closure_phase()
     prows = closure_path_phase()
+    erows = exec_block_phase()
     srow = shift_world1_phase()
 
     # 3. the card against the CPU
@@ -4155,6 +4243,18 @@ def main() -> int:
                                "bound_ms", "bound_by", "share_of_bound",
                                "warshall_bound_ms")}
             for r in crows}})
+    for kname in ("dep_graph", "exec_masks"):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paxi_tpu_torch/ops/csrc/exec_graph.cu",
+            "replaces": None, "launches": launches[kname],
+            "launches_by_path": by_path[kname],
+            "max_abs_err": max(r[kname]["max_abs_err"] for r in erows),
+            "ms": erows[0][kname]["ms"],
+            "plain_ms": erows[0][kname]["plain_ms"],
+            "bound_ms": erows[0][kname]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "by_shape": {r["shape"]: r[kname] for r in erows}})
     kernels.append({
         "name": "make_remote_lane_shift", "route": "cuda",
         "source": "paxi_tpu_torch/ops/csrc/lane_shift.cu",

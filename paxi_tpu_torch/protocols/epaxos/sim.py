@@ -18,10 +18,11 @@ Layout, as in the reference:
   keeping the last ``I // 2`` for retransmits and prepares.  Deps hold
   absolute ids: below my window is satisfied, in-window is a graph edge,
   above my window blocks execution until the window catches up.
-- Execution builds the window graph and takes its reachability with
-  ``ops/closure.transitive_closure`` (the CUDA kernel on the card); SCCs
-  are ``reach & reach^T``, and a committed instance executes once every
-  cross-SCC instance it reaches has executed.
+- Execution builds the window graph (``ops/exec_graph.dep_graph``), takes
+  its reachability with ``ops/closure.transitive_closure`` and reads it
+  back into masks (``ops/exec_graph.exec_masks``), a CUDA kernel each on
+  the card; SCCs are ``reach & reach^T``, and a committed instance
+  executes once every cross-SCC instance it reaches has executed.
 - Recovery runs in the kernel: a per-cell promised ballot ``bal`` gates
   the owner's implicit ballot 0; each replica ages the uncommitted cells
   blocking its execution frontier and, past a staggered timeout, runs a
@@ -42,6 +43,7 @@ import torch
 
 from paxi_tpu_torch.metrics import lathist
 from paxi_tpu_torch.ops.closure import transitive_closure
+from paxi_tpu_torch.ops.exec_graph import dep_graph, exec_masks
 from paxi_tpu_torch.ops.hashing import fib_key, wrap_int32
 from paxi_tpu_torch.sim import inscan
 from paxi_tpu_torch.sim.ballot_ring import argmax_i32, popcount
@@ -747,40 +749,21 @@ def step(state, inbox, ctx: StepCtx):
     status = torch.where(wr, ST_COMMIT, status)
 
     # ---------------- execution: closure -> SCC -> ordered apply --------
-    committed = (status == ST_COMMIT).reshape(R, NN, G)
+    # the kernels below take contiguous planes (a no-op on the main path)
+    committed = (status == ST_COMMIT).reshape(R, NN, G).contiguous()
     seq_f = seq.reshape(R, NN, G)
     cmd_f = cmd.reshape(R, NN, G)
-    exec_f = executed.reshape(R, NN, G)
-    deps_f = deps.reshape(R, NN, R, G)
-    # deps hold absolute ids: below my window -> executed here already,
-    # no edge; in-window -> an edge; above -> block the source.  Owner q's
-    # targets all fall in columns [q*I, (q+1)*I), so the graph is built
-    # one column block per owner; only committed sources constrain.
-    blocks = []
-    fblock = torch.zeros((R, NN, G), dtype=torch.bool, device=dev)
-    for q in range(R):
-        tgt = deps_f[:, :, q, :]                         # (R, NN, G) abs
-        rel_q = tgt - base[:, q, None, :]
-        inw_q = (tgt >= 0) & (rel_q >= 0) & (rel_q < I) & committed
-        fblock = fblock | ((tgt >= 0) & (rel_q >= I))
-        blocks.append(inw_q[:, :, None, :]
-                      & (iidx[None, None, :, None]
-                         == torch.clamp(rel_q, 0, I - 1)[:, :, None, :]))
-    A = torch.cat(blocks, dim=2)                         # (R, NN, NN, G)
-    del blocks                  # each cube is 3.2 GB at 100k groups
-    # the kernel takes contiguous (batch, N, N) matrices: the group axis
-    # moves next to the replica axis and back
-    reach = torch.movedim(
-        transitive_closure(torch.movedim(A, -1, 1).contiguous()), 1, -1)
-    del A
-    # an above-window dep blocks every instance that can reach it, not
-    # just its direct source
-    blocked = torch.any(reach & (~committed | fblock)[:, None, :, :],
-                        dim=2) | fblock
-    ready = committed & ~blocked & ~exec_f
-    # cross-SCC reach: reach & ~(reach & reach^T) == reach & ~reach^T
-    exec_ok = ready & ~torch.any(reach & ~reach.transpose(1, 2)
-                                 & ~exec_f[:, None, :, :], dim=2)
+    exec_f = executed.reshape(R, NN, G).contiguous()
+    # the window graphs, closed, read back into masks: one kernel a pass on
+    # the card (ops/exec_graph.py), each cube written and read once
+    A, fblock = dep_graph(deps.reshape(R, NN, R, G).contiguous(),
+                          base.contiguous(), committed)
+    reach = transitive_closure(A)                        # (R*G, NN, NN)
+    del A                       # each cube is 3.2 GB at 100k groups
+    # needed (the recovery trigger below) from exec_f: exec_masks_plain
+    # says why that equals the executions of this step's window
+    exec_ok, needed = exec_masks(reach, committed, fblock, exec_f)
+    del reach
     # above every encodable cmd id (owner <= 30, so cmd < 2^29)
     BIG = 1 << 29
     new_exec = exec_f
@@ -808,10 +791,7 @@ def step(state, inbox, ctx: StepCtx):
     # ---------------- recovery trigger: age blocking cells ---------------
     # a cell is "needed" when committed-unexecuted work reaches it and it
     # is not committed: exactly the frontier blockers
-    src_live = committed & ~new_exec
-    needed = (torch.any(src_live[:, :, None, :] & reach, dim=1)
-              & ~committed).reshape(R, R, I, G)
-    del reach
+    needed = needed.reshape(R, R, I, G)
     age = torch.where(needed, age + 1, 0)
     # staggered per-replica patience breaks recoverer duels
     patience = cfg.election_timeout + ridx[:, None] * cfg.backoff

@@ -2,7 +2,9 @@
 exchange kernels (one launch a step each, at every shape of the main
 paths, the outbox as protocols lay it and at a ragged G), the transitive
 closure (every route: the warp kernel, the block kernel with its bit rows
-in shared memory and in global scratch, up to 2,048 nodes) and the ring
+in shared memory and in global scratch, up to 2,048 nodes), the EPaxos
+execution block's graph and masks kernels (5 x 16 at 8 and 100,000
+groups, a ragged tile, 3 x 128, past shared memory) and the ring
 shift (at world 1
 and over four ranks sharing the card), the EPaxos, SDPaxos and WPaxos
 paths on the card against the same runs on the CPU, workload runs and the
@@ -358,19 +360,101 @@ def test_closure_rejects_bad_arguments(card):
                                       device=card).transpose(1, 2))
 
 
+# ---- the EPaxos execution block (ops/exec_graph.py) ------------------------
+
+# (replicas, instances, groups): the step's 5 x 16 at 8 groups and at the
+# main path's 100,000, a ragged tile (13 groups, 4 a tile) at 65 nodes
+# (graphs off every 16-byte unit, row words by ballot), and past the staged
+# path: the CLI's 3 x 128 read where it lies, 2 x 128 two groups a tile at
+# 7 groups, 1,500 nodes in chunks of words
+EXEC_SHAPES = {"5x16_g8": (5, 16, 8), "5x16_main_path": (5, 16, 100_000),
+               "5x13_ragged": (5, 13, 13), "3x128_cli": (3, 128, 1_024),
+               "2x128_ragged": (2, 128, 7), "3x500_word_chunks": (3, 500, 2)}
+
+
+def _exec_inputs(card, r, i, g, seed):
+    """Deps below, inside and above the window and absent (-1), random
+    committed and executed masks."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    nn = r * i
+    base = torch.randint(0, 1 << 20, (r, r, g), generator=gen, device=card,
+                         dtype=torch.int32)
+    deps = base[:, None] + torch.randint(-3, i + 3, (r, nn, r, g),
+                                         generator=gen, device=card,
+                                         dtype=torch.int32)
+    deps = torch.where(torch.rand(deps.shape, generator=gen, device=card)
+                       < 0.2, -1, deps)
+    committed = torch.rand((r, nn, g), generator=gen, device=card) < 0.7
+    executed = committed & (torch.rand((r, nn, g), generator=gen,
+                                       device=card) < 0.3)
+    return deps, base, committed, executed
+
+
+@pytest.mark.parametrize("shape", EXEC_SHAPES)
+def test_exec_block_kernels_equal_plain(card, shape):
+    """Each kernel, one launch a call, bit for bit the plain version: the
+    masks on the closure of the built graphs and on a random cube."""
+    from paxi_tpu_torch.ops import exec_graph as xg
+    r, i, g = EXEC_SHAPES[shape]
+    deps, base, committed, executed = _exec_inputs(card, r, i, g, r * i + g)
+    before = xg.dep_graph.launches
+    adj, fblock = xg.dep_graph(deps, base, committed)
+    assert xg.dep_graph.launches == before + 1
+    want = xg.dep_graph_plain(deps, base, committed)
+    assert torch.equal(adj, want[0]) and torch.equal(fblock, want[1])
+    assert adj.any() and fblock.any()
+    del want
+    gen = torch.Generator(device=card)
+    gen.manual_seed(g)
+    seen = torch.zeros(2, dtype=torch.bool, device=card)
+    # about two edges a row in the random cube
+    for reach in (pc.transitive_closure(adj),
+                  torch.rand(adj.shape, generator=gen, device=card)
+                  < 2 / (r * i)):
+        before = xg.exec_masks.launches
+        got = xg.exec_masks(reach, committed, fblock, executed)
+        assert xg.exec_masks.launches == before + 1
+        want = xg.exec_masks_plain(reach, committed, fblock, executed)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        seen |= torch.stack([want[0].any(), want[1].any()])
+        del reach, got, want
+    assert seen.all()
+    torch.cuda.empty_cache()
+
+
+def test_exec_block_wrappers_reject_bad_arguments(card):
+    from paxi_tpu_torch.ops import exec_graph as xg
+    deps, base, committed, executed = _exec_inputs(card, 3, 4, 5, 1)
+    before = (xg.dep_graph.launches, xg.exec_masks.launches)
+    with pytest.raises(TypeError):
+        xg.dep_graph_launch(deps, base, committed.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        xg.dep_graph_launch(deps, base.cpu(), committed)
+    adj, fblock = xg.dep_graph_launch(deps, base, committed)
+    with pytest.raises(ValueError, match="contiguous"):
+        xg.exec_masks_launch(adj.transpose(1, 2), committed, fblock,
+                             executed)
+    assert (xg.dep_graph.launches, xg.exec_masks.launches) \
+        == (before[0] + 1, before[1])
+
+
 # ---- the EPaxos path ------------------------------------------------------
 
 def test_epaxos_card_equals_cpu(card):
     from paxi_tpu_torch.convert import state_to_numpy
     from paxi_tpu_torch.protocols import sim_protocol
     from paxi_tpu_torch.sim import FuzzConfig, simulate
+    from paxi_tpu_torch.ops import exec_graph as xg
     cfg = SimConfig(n_replicas=R, n_slots=16, n_keys=4)
     for fuzz in (FuzzConfig(), FuzzConfig(p_drop=0.1, max_delay=3)):
         a = simulate(sim_protocol("epaxos"), cfg, 64, 40, fuzz, seed=2,
                      device="cpu")
         pc.reset_launches()
+        xg.reset_launches()
         b = simulate(sim_protocol("epaxos"), cfg, 64, 40, fuzz, seed=2)
         assert pc.transitive_closure.launches == 40
+        assert xg.dep_graph.launches == xg.exec_masks.launches == 40
         sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
         for k in sa:
             assert sa[k].dtype == sb[k].dtype and (sa[k] == sb[k]).all(), k
