@@ -3,8 +3,10 @@ benchmark.
 
 ``BENCHMARK.json`` at the repository root lists the cells (``workloads``),
 the configurations and the metrics.  A configuration's sizes live in
-``simbench/configs/<config>.json``, its plain reference in
-``simbench/reference/<protocol>.py``; a traffic mix in
+``simbench/configs/<config>.json`` (its ``sim`` object holds any field of
+the port's ``SimConfig``, a ``workload`` object among them), its plain
+reference in ``simbench/reference/<name>.py``, where ``<name>`` is the
+file's ``reference`` or else its ``protocol``; a traffic mix in
 ``simbench/traffic/<traffic>.json``; a metric's reader in
 ``simbench/metrics/<metric>.py``.  Nothing here lists a cell: adding one
 is adding files and entries.
@@ -101,6 +103,9 @@ def reader(metric: str) -> ModuleType:
     return mod
 
 
-def reference(protocol: str) -> ModuleType:
-    """The plain reference of a protocol, ``simbench/reference/<name>.py``."""
-    return importlib.import_module(f"simbench.reference.{protocol}")
+def reference(config: Dict[str, Any]) -> ModuleType:
+    """The plain reference of a configuration file,
+    ``simbench/reference/<name>.py``: ``<name>`` is the file's
+    ``reference``, else its protocol."""
+    name = config.get("reference", config["protocol"])
+    return importlib.import_module(f"simbench.reference.{name}")

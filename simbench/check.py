@@ -12,6 +12,15 @@ episode's command total has to equal what the reference's metric counts on
 the program's own final plane, and the window's invariant and in-round
 violations have to be 0, the guarantee every configuration states.  Each
 is an exact comparison, so each limit is 0.
+
+A reference module (``simbench/reference/<name>.py``, found by
+``cells.reference``) exports ``init_state``, ``mailbox_spec``,
+``step`` and ``group_invariants`` (the round loop's calls, on lane-major
+planes), ``COMMAND_PLANES`` (the plane each command count is made of),
+``command_count`` and ``metrics``; and, optionally, ``control_geometry``:
+the geometry its control runs under, given the configuration's, for a
+protocol whose quorums ``QuorumOfOne`` does not reach (counted in zones,
+say).  Without it the control runs under ``QuorumOfOne``.
 """
 
 from __future__ import annotations
@@ -152,15 +161,25 @@ def judge(prog: Program, win: Window, seed: int, lanes: np.ndarray,
     return numbers, info
 
 
+def control_geometry(prog: Program) -> Geometry:
+    """The control's geometry: the reference module's
+    ``control_geometry`` of the configuration's, where it has one, else
+    the configuration's under ``QuorumOfOne``."""
+    own = getattr(prog.ref, "control_geometry", None)
+    if own is not None:
+        return own(prog.geo)
+    return replace(QuorumOfOne(), **prog.cell.config["sim"])
+
+
 def control_window(prog: Program, seed: int, lanes: np.ndarray,
                    episodes: int = 1) -> Window:
     """The control in the program's place: the reference under
-    ``QuorumOfOne`` runs the window's first whole episodes, for the groups
-    the check runs (the whole batch where it runs the whole batch, else
-    the sample, at the cell's batch size: the draws are the batch's), and
-    stands for the program's outputs: its command totals and counters
+    ``control_geometry`` runs the window's first whole episodes, for the
+    groups the check runs (the whole batch where it runs the whole batch,
+    else the sample, at the cell's batch size: the draws are the batch's),
+    and stands for the program's outputs: its command totals and counters
     over those groups, the sample's final planes."""
-    geo = replace(QuorumOfOne(), **prog.cell.config["sim"])
+    geo = control_geometry(prog)
     run_lanes = np.arange(prog.groups) if whole_batch(prog) else lanes
     idx = torch.as_tensor(np.searchsorted(run_lanes, lanes),
                           device=prog.device)

@@ -1,7 +1,8 @@
 """The check's control: the plain reference in the program's place, with
-every quorum cut to one replica (``check.QuorumOfOne``), which breaks the
-guarantee each configuration states (agreement; the conflict order).  The
-check has to find it not correct.
+every quorum cut to one replica (``check.QuorumOfOne``, or the reference
+module's own ``control_geometry``), which breaks the guarantee each
+configuration states (agreement; the conflict order).  The check has to
+find it not correct.
 
     python3 -m simbench.control --workload <cell> --seeds 1,2,3 \\
         [--device cuda]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -86,24 +86,38 @@ class Clock:
         return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
 
+def port_config(sim: Dict[str, Any]):
+    """The port's ``SimConfig`` of a configuration's ``sim`` object: its
+    ``workload`` object, if any, rebuilt as the port's ``Workload`` and
+    checked against the key space."""
+    from paxi_tpu_torch.sim import SimConfig
+    from paxi_tpu_torch.workload import Workload, apply_workload
+
+    wl = sim.get("workload")
+    cfg = SimConfig(**dict(sim, workload=None))
+    return apply_workload(cfg, None if wl is None else Workload.from_dict(wl))
+
+
 class Program:
     """A cell's configuration and traffic as the port runs them."""
 
     def __init__(self, cell: cells.Cell, device, groups: Optional[int] = None):
         from paxi_tpu_torch.protocols import sim_protocol
-        from paxi_tpu_torch.sim import FuzzConfig, SimConfig
+        from paxi_tpu_torch.sim import FuzzConfig
         from paxi_tpu_torch.sim import runner
 
         self.cell = cell
         self.runner = runner
         self.proto = sim_protocol(cell.config["protocol"])
-        self.cfg = SimConfig(**cell.config["sim"])
+        self.cfg = port_config(cell.config["sim"])
         self.fuzz = FuzzConfig(**cell.traffic["fuzz"])
         self.groups = int(groups or cell.groups)
         self.rounds = cell.rounds
         self.device = torch.device(device)
         self.command = cell.config["commands"]
-        self.ref = cells.reference(cell.config["protocol"])
+        self.ref = cells.reference(cell.config)
+        # the reference imports nothing of the port: a workload stays the
+        # plain dict of the configuration file
         self.geo = Geometry(**cell.config["sim"])
 
     def key(self, seed: int, episode: int) -> torch.Tensor:

@@ -2,9 +2,10 @@
 context, the command hash, the commit-latency histogram's kernel half and
 the in-round linearizability spot-check.
 
-Frozen copies of the port's ``sim/types.py`` (the fields these protocols
-read, with the same defaults), ``ops/hashing.py``, ``metrics/lathist.py``
-and ``sim/inscan.py``.  The group axis is last on every plane.
+Frozen copies of the port's ``sim/types.py`` (every field of its
+``SimConfig``, with the same defaults), ``ops/hashing.py``,
+``metrics/lathist.py`` and ``sim/inscan.py``.  The group axis is last on
+every plane.
 """
 
 from __future__ import annotations
@@ -19,18 +20,36 @@ I32 = torch.int32
 
 @dataclass(frozen=True)
 class Geometry:
-    """Per-group geometry: the fields of a simulation config that the
-    reference protocols read, with paxi's defaults."""
+    """Per-group geometry: every field of the port's simulation config,
+    with the same defaults, so that a configuration file's ``sim`` object
+    means the same run on both sides; each reference protocol reads the
+    fields it needs."""
 
     n_replicas: int = 3
     n_slots: int = 64
     n_keys: int = 16
+    n_zones: int = 1
     exec_window: int = 4
     ballot_stride: int = 64
     election_timeout: int = 8
     backoff: int = 8
     retry_timeout: int = 6
-    # the reference runs no client workload model
+    # protocol-specific extras (ignored by protocols that don't use them)
+    n_objects: int = 8
+    steal_threshold: int = 3
+    grid_q2: int = 1
+    locality: float = 0.8
+    fast_quorum: bool = True
+    n_proxies: int = 2
+    grid_rows: int = 2
+    grid_cols: int = 2
+    batch_max: int = 4
+    sw_window: int = 16
+    sw_down_start: int = -1
+    sw_down_period: int = 0
+    sw_down_for: int = 0
+    # a configuration's ``workload`` object as the plain dict of its file
+    # (the port receives it as its ``Workload``), or None
     workload: Any = None
 
     @property

@@ -59,23 +59,69 @@ def test_names_units_and_keys():
     assert len(set(pairs)) == len(pairs)
 
 
+def reduced_problems(config, data):
+    """What keeps a configuration's cuts from being written down: its
+    ``reduced`` has to be the same in ``BENCHMARK.json`` and in its file,
+    name keys of the file (at the top or in ``sim``), and each key has its
+    published value stated under ``assumed``."""
+    problems = []
+    if data.get("reduced") != config["reduced"]:
+        problems.append("reduced differs between BENCHMARK.json and the file")
+    if len(config["reduced"]) > 16:
+        problems.append("more than 16 reduced keys")
+    assumed = data.get("assumed", {})
+    for key in config["reduced"]:
+        if not NAME.match(key) or (key not in data
+                                   and key not in data.get("sim", {})):
+            problems.append(f"reduced key {key!r} is no key of the file")
+        text = assumed.get(key, "")
+        if not (_line(text) and "published" in text
+                and re.search(r"[0-9]", text)):
+            problems.append(f"reduced key {key!r} has no published value "
+                            "under assumed")
+    return problems
+
+
+def _config_file(config):
+    return cells.load_json(cells.ROOT / config["file"])
+
+
 @pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
 def test_config_file(config):
     assert set(config) == {"name", "source", "file", "reduced", "why"}
     assert config["file"].startswith("simbench/configs/")
-    data = cells.load_json(cells.ROOT / config["file"])
+    data = _config_file(config)
     assert data["name"] == config["name"]
     assert _line(config["source"]) and _line(data["source"])
-    assert data["reduced"] == config["reduced"] == []
+    assert reduced_problems(config, data) == []
     assert data["guarantees"] and data["assumed"]
     assert any(w["config"] == config["name"] for w in SPEC["workloads"])
-    assert cells.reference(data["protocol"]).metrics
+    assert cells.reference(data).metrics
+
+
+def test_reduced_key_needs_its_published_value():
+    config = dict(SPEC["configs"][0], reduced=["groups"])
+    data = _config_file(config)
+    data["reduced"] = ["groups"]
+    data["assumed"]["groups"] = ("published 1,000,000 groups; 100,000 "
+                                 "here, what one card holds")
+    assert reduced_problems(config, data) == []
+    del data["assumed"]["groups"]
+    assert reduced_problems(config, data)
+    data["assumed"]["groups"] = "fewer groups"
+    assert reduced_problems(config, data)
+    assert reduced_problems(dict(config, reduced=[]), data)
+    data["reduced"] = config["reduced"] = ["no_such_key"]
+    data["assumed"]["no_such_key"] = "published 3"
+    assert reduced_problems(config, data)
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_cell_found_by_name(cell):
     c = cells.find_cell(cell)
-    assert c.groups == 100_000
+    entry = {w["name"]: w for w in SPEC["workloads"]}[cell]
+    config = {x["name"]: x for x in SPEC["configs"]}[entry["config"]]
+    assert c.groups == int(_config_file(config)["groups"]) > 0
     assert "fuzz" in c.traffic
     e2e = {m.name for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2

@@ -16,7 +16,7 @@ from paxi_tpu_torch.protocols import sim_protocol
 from paxi_tpu_torch.sim import FuzzConfig, SimConfig
 from paxi_tpu_torch.sim.runner import make_run
 from simbench import cells, check
-from simbench.program import episode_words, sample_groups
+from simbench.program import episode_words, port_config, sample_groups
 from simbench.reference import prng
 from simbench.reference.common import Faults, Geometry
 from simbench.reference.runner import run_episode
@@ -39,12 +39,12 @@ def test_reference_equals_port_on_sampled_groups(config, traffic, rounds):
     cfg_file, fuzz = _config(config), _traffic(traffic)["fuzz"]
     groups, seed = 12, 2 ** 33 + 77
     proto = sim_protocol(cfg_file["protocol"])
-    run = make_run(proto, SimConfig(**cfg_file["sim"]), FuzzConfig(**fuzz),
+    run = make_run(proto, port_config(cfg_file["sim"]), FuzzConfig(**fuzz),
                    device="cpu")
     key = torch.tensor(episode_words(seed, 3), dtype=torch.int64)
     state, _, viols = run(key, groups, rounds)
     lanes = sample_groups(seed, groups, 5)
-    ref = cells.reference(cfg_file["protocol"])
+    ref = cells.reference(cfg_file)
     want, ref_viol, _ = run_episode(ref, Geometry(**cfg_file["sim"]),
                                  Faults(**fuzz), episode_words(seed, 3),
                                  lanes, groups, rounds, "cpu")
@@ -61,11 +61,11 @@ def test_reference_counts_equal_ports_over_the_batch(config, traffic,
     cfg_file, fuzz = _config(config), _traffic(traffic)["fuzz"]
     groups, seed = 10, 2 ** 35 + 11
     proto = sim_protocol(cfg_file["protocol"])
-    run = make_run(proto, SimConfig(**cfg_file["sim"]), FuzzConfig(**fuzz),
+    run = make_run(proto, port_config(cfg_file["sim"]), FuzzConfig(**fuzz),
                    device="cpu")
     key = torch.tensor(episode_words(seed, 1), dtype=torch.int64)
     _, metrics, _ = run(key, groups, rounds)
-    ref = cells.reference(cfg_file["protocol"])
+    ref = cells.reference(cfg_file)
     state, _, counts = run_episode(ref, Geometry(**cfg_file["sim"]),
                                    Faults(**fuzz), episode_words(seed, 1),
                                    np.arange(groups), groups, rounds, "cpu")
@@ -83,8 +83,7 @@ def test_reference_counts_equal_ports_over_the_batch(config, traffic,
 
 def test_geometry_defaults_are_the_ports():
     port = {f.name: f.default for f in dataclasses.fields(SimConfig)}
-    for f in dataclasses.fields(Geometry):
-        assert f.default == port[f.name], f.name
+    assert {f.name: f.default for f in dataclasses.fields(Geometry)} == port
     faults = {f.name: f.default for f in dataclasses.fields(FuzzConfig)}
     for f in dataclasses.fields(Faults):
         assert f.default == faults[f.name], f.name
